@@ -1,0 +1,32 @@
+"""distributed_raytracer_tpu_torch — the PyTorch/CUDA port of the JAX
+package distributed_raytracer_tpu (the reference it is tested against).
+
+A package of its own beside the JAX one: it imports torch and numpy,
+never JAX or the JAX package.  Plain tensor code is PyTorch; every TPU
+kernel on a ported path is a CUDA kernel written for Hopper (sm_90a),
+with a plain PyTorch version beside it that runs on CPU tensors.  Entry
+points run on the CUDA card unless the caller asks for the CPU.
+"""
+
+from distributed_raytracer_tpu_torch.models.scene import (
+    ABSORB,
+    DIELECTRIC,
+    LAMBERTIAN,
+    METAL,
+    TRANSPARENT,
+    Scene,
+    SceneBuilder,
+)
+from distributed_raytracer_tpu_torch.ops.camera import Camera, make_camera
+
+__all__ = [
+    "Scene",
+    "SceneBuilder",
+    "Camera",
+    "make_camera",
+    "LAMBERTIAN",
+    "METAL",
+    "DIELECTRIC",
+    "ABSORB",
+    "TRANSPARENT",
+]

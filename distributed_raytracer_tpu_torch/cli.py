@@ -1,0 +1,87 @@
+"""Command-line interface of the port.
+
+    python -m distributed_raytracer_tpu_torch.cli render --config config5 --spp 4 --out out.ppm
+
+`render` is the progressive renderer on the mega engine, with
+checkpoint/resume.  It runs on the CUDA card; --cpu runs the plain
+PyTorch version on the CPU instead.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def _load(args):
+    from distributed_raytracer_tpu_torch.models.presets import get_config
+    from distributed_raytracer_tpu_torch.ops.camera import make_camera
+
+    scene, cam = get_config(args.config)
+    if args.width:
+        cam = make_camera(
+            aspect_ratio=cam.image_width / cam.image_height,
+            image_width=args.width,
+            samples_per_pixel=cam.samples_per_pixel,
+            max_depth=cam.max_depth,
+            vfov=float(cam.vfov),
+            lookfrom=tuple(float(x) for x in cam.lookfrom),
+            lookat=tuple(float(x) for x in cam.lookat),
+            vup=tuple(float(x) for x in cam.vup),
+            defocus_angle=float(cam.defocus_angle),
+            focus_dist=float(cam.focus_dist),
+        )
+    if args.spp:
+        cam = cam.replace(samples_per_pixel=args.spp)
+    return scene, cam
+
+
+def cmd_render(args):
+    from distributed_raytracer_tpu_torch.render.image import write_ppm
+    from distributed_raytracer_tpu_torch.render.progressive import render_progressive
+
+    scene, cam = _load(args)
+    out = args.out or f"{args.config}.ppm"
+    device = "cpu" if args.cpu else None
+    t0 = time.time()
+
+    def progress(state):
+        el = time.time() - t0
+        print(
+            f"sample {state.samples_done}/{cam.samples_per_pixel} "
+            f"({cam.num_pixels * state.samples_done / el:,.0f} rays/s) [mega]",
+            file=sys.stderr,
+        )
+
+    state = render_progressive(
+        scene, cam, seed=args.seed, spp=cam.samples_per_pixel, batch=args.batch,
+        checkpoint_path=args.checkpoint, resume=not args.no_resume,
+        progress_cb=progress, engine="mega", device=device,
+    )
+    write_ppm(out, state.mean_image())
+    print(f"wrote {out} [engine=mega, device={'cpu' if args.cpu else 'cuda'}]",
+          file=sys.stderr)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="distributed_raytracer_tpu_torch", allow_abbrev=False)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("render", help="single-device progressive render", allow_abbrev=False)
+    p.add_argument("--config", default="config1", help="preset name (config1..config5)")
+    p.add_argument("--spp", type=int, default=None, help="override samples per pixel")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--batch", type=int, default=16, help="samples per batch")
+    p.add_argument("--width", type=int, default=None, help="override image width")
+    p.add_argument("--out", default=None, help="output .ppm path")
+    p.add_argument("--checkpoint", default=None, help="checkpoint path for resume")
+    p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--cpu", action="store_true",
+                   help="run the plain PyTorch version on the CPU")
+    p.set_defaults(fn=cmd_render)
+    args = ap.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

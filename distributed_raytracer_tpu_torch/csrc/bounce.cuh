@@ -1,0 +1,188 @@
+// One bounce of one ray: the device-function ports of
+// distributed_raytracer_tpu/ops/pallas/bounce_kernel.py::_sweep_winner (:93)
+// and ::_shade_vals (:150).  Plain versions: ops/kernels/bounce.py.
+//
+// The TPU versions compute every material's result for a row of rays and
+// select; here one thread holds one ray and runs only its material's
+// branch.  Each value is computed by the same expressions in the same
+// order, and the draws are pure functions of (rid, seed, d), so skipping
+// a branch's unused draws changes no bit of the result.
+#pragma once
+#include "hash.cuh"
+
+#define DR_BIG 1e30f
+#define DR_T_MIN 1e-3f
+#define DR_NEAR_ZERO 1e-6f
+#define DR_TWO_PI 6.2831853f
+
+// winner-attribute rows held per sphere in shared memory (ops/kernels/
+// bounce.py A_RR..A_MT; the centers come from the sweep columns)
+#define ATT_RR 0
+#define ATT_AR 1
+#define ATT_AG 2
+#define ATT_AB 3
+#define ATT_FZ 4
+#define ATT_IO 5
+#define ATT_MT 6
+#define ATT_ROWS 7
+
+// Closest hit over n spheres (cx, cy, cz, r2), ascending index with a
+// strict <, so the first minimum wins as in jnp.argmin.  Returns t (DR_BIG
+// on a miss) and the winner's index in *idx (0 on a miss).  r2 = -1 marks
+// a sphere that never hits.
+__device__ __forceinline__ float sweep_winner(const float4* sph, int n, float ox, float oy,
+                                              float oz, float dx, float dy, float dz,
+                                              float a, float inv_a, int* idx) {
+  float best = DR_BIG;
+  int bi = 0;
+  for (int j = 0; j < n; ++j) {
+    const float4 s = sph[j];
+    const float ocx = s.x - ox;
+    const float ocy = s.y - oy;
+    const float ocz = s.z - oz;
+    const float h = dx * ocx + dy * ocy + dz * ocz;
+    const float c_q = ocx * ocx + ocy * ocy + ocz * ocz - s.w;
+    const float disc = h * h - a * c_q;
+    if (disc >= 0.0f) {
+      const float sqrtd = sqrtf(disc);
+      const float rn = (h - sqrtd) * inv_a;
+      const float rf = (h + sqrtd) * inv_a;
+      const float t = rn > DR_T_MIN ? rn : (rf > DR_T_MIN ? rf : DR_BIG);
+      if (t < best) {
+        best = t;
+        bi = j;
+      }
+    }
+  }
+  *idx = bi;
+  return best;
+}
+
+// Shades one ray against the winner (index bi, attributes att[row * stride
+// + bi]).  On return either the ray finished (true; its terminal color in
+// co: sky on a miss, black when absorbed) or it scattered (false; o and d
+// hold the next ray, at the attenuation of this bounce).
+__device__ __forceinline__ bool shade(float o[3], float d[3], float a, float t,
+                                      const float4* sph, const float* att, int stride,
+                                      int bi, uint32_t rid, uint32_t seed, float at[3],
+                                      float co[3]) {
+  const float dinv = rsqrtf(a);
+  if (!(t < DR_BIG * 0.5f)) {  // miss: the sky gradient
+    const float uy_n = d[1] * dinv;
+    const float sky_a = 0.5f * (uy_n + 1.0f);
+    co[0] = (1.0f - sky_a) + sky_a * 0.5f;
+    co[1] = (1.0f - sky_a) + sky_a * 0.7f;
+    co[2] = (1.0f - sky_a) + sky_a * 1.0f;
+    return true;
+  }
+  const float4 s = sph[bi];
+  const float wrr = att[ATT_RR * stride + bi];
+  const float mt = att[ATT_MT * stride + bi];
+  if (mt == 3.0f) {  // ABSORB
+    co[0] = co[1] = co[2] = 0.0f;
+    return true;
+  }
+  const float px = o[0] + t * d[0];
+  const float py = o[1] + t * d[1];
+  const float pz = o[2] + t * d[2];
+  const float saferr = wrr > 0.0f ? wrr : 1.0f;
+  float nx = (px - s.x) / saferr;
+  float ny = (py - s.y) / saferr;
+  float nz = (pz - s.z) / saferr;
+  const float d_dot_n = d[0] * nx + d[1] * ny + d[2] * nz;
+  const bool front = d_dot_n < 0.0f;
+  const float fs = front ? 1.0f : -1.0f;
+  nx = nx * fs;
+  ny = ny * fs;
+  nz = nz * fs;
+
+  if (mt == 4.0f) {  // TRANSPARENT: origin and direction unchanged
+    at[0] = at[1] = at[2] = 1.0f;
+    return false;
+  }
+  if (mt == 2.0f) {  // DIELECTRIC
+    const float wio = att[ATT_IO * stride + bi];
+    const float u_choice = hash_u01(rid, seed, 4u);
+    const float ior = wio > 0.0f ? wio : 1.0f;
+    const float ri = front ? 1.0f / ior : ior;
+    const float ux = d[0] * dinv, uy = d[1] * dinv, uz = d[2] * dinv;
+    const float cos_t = fminf(-(ux * nx + uy * ny + uz * nz), 1.0f);
+    const float sin2 = fmaxf(1.0f - cos_t * cos_t, 0.0f);
+    const bool cannot = ri * ri * sin2 > 1.0f;
+    float r0 = (1.0f - ri) / (1.0f + ri);
+    r0 = r0 * r0;
+    const float omc = 1.0f - cos_t;
+    const float schlick = r0 + (1.0f - r0) * omc * omc * omc * omc * omc;
+    if (cannot || schlick > u_choice) {
+      const float u_dot_n = ux * nx + uy * ny + uz * nz;
+      d[0] = ux - 2.0f * u_dot_n * nx;
+      d[1] = uy - 2.0f * u_dot_n * ny;
+      d[2] = uz - 2.0f * u_dot_n * nz;
+    } else {
+      const float perp_x = ri * (ux + cos_t * nx);
+      const float perp_y = ri * (uy + cos_t * ny);
+      const float perp_z = ri * (uz + cos_t * nz);
+      const float k = fabsf(1.0f - (perp_x * perp_x + perp_y * perp_y + perp_z * perp_z));
+      const float para = -sqrtf(k);
+      d[0] = perp_x + para * nx;
+      d[1] = perp_y + para * ny;
+      d[2] = perp_z + para * nz;
+    }
+    o[0] = px;
+    o[1] = py;
+    o[2] = pz;
+    at[0] = at[1] = at[2] = 1.0f;
+    return false;
+  }
+
+  const float war = att[ATT_AR * stride + bi];
+  const float wag = att[ATT_AG * stride + bi];
+  const float wab = att[ATT_AB * stride + bi];
+  float ndx = d[0], ndy = d[1], ndz = d[2];
+  if (mt == 0.0f || mt == 1.0f) {
+    // gaussians via Box-Muller -> random unit vector
+    const float u1 = hash_u01(rid, seed, 0u);
+    const float u2 = hash_u01(rid, seed, 1u);
+    const float u3 = hash_u01(rid, seed, 2u);
+    const float u4 = hash_u01(rid, seed, 3u);
+    const float rad1 = sqrtf(-2.0f * logf(u1));
+    const float g1 = rad1 * cosf(DR_TWO_PI * u2);
+    const float g2 = rad1 * sinf(DR_TWO_PI * u2);
+    const float g3 = sqrtf(-2.0f * logf(u3)) * cosf(DR_TWO_PI * u4);
+    const float gn = rsqrtf(g1 * g1 + g2 * g2 + g3 * g3 + 1e-20f);
+    const float rux = g1 * gn, ruy = g2 * gn, ruz = g3 * gn;
+    if (mt == 0.0f) {  // LAMBERTIAN
+      ndx = nx + rux;
+      ndy = ny + ruy;
+      ndz = nz + ruz;
+      if (fabsf(ndx) < DR_NEAR_ZERO && fabsf(ndy) < DR_NEAR_ZERO && fabsf(ndz) < DR_NEAR_ZERO) {
+        ndx = nx;
+        ndy = ny;
+        ndz = nz;
+      }
+    } else {  // METAL: reflect about the oriented normal, then fuzz
+      const float wfz = att[ATT_FZ * stride + bi];
+      const float rx = d[0] - 2.0f * d_dot_n * fs * nx;
+      const float ry = d[1] - 2.0f * d_dot_n * fs * ny;
+      const float rz = d[2] - 2.0f * d_dot_n * fs * nz;
+      const float rinv = rsqrtf(rx * rx + ry * ry + rz * rz + 1e-20f);
+      ndx = rx * rinv + wfz * rux;
+      ndy = ry * rinv + wfz * ruy;
+      ndz = rz * rinv + wfz * ruz;
+      if (!((ndx * nx + ndy * ny + ndz * nz) > 0.0f)) {  // absorbed
+        co[0] = co[1] = co[2] = 0.0f;
+        return true;
+      }
+    }
+  }
+  o[0] = px;
+  o[1] = py;
+  o[2] = pz;
+  d[0] = ndx;
+  d[1] = ndy;
+  d[2] = ndz;
+  at[0] = war;
+  at[1] = wag;
+  at[2] = wab;
+  return false;
+}

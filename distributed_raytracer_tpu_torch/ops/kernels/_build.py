@@ -1,0 +1,79 @@
+"""Builds the port's CUDA sources at first use and loads them with ctypes.
+
+`csrc/<name>.cu` is compiled by `nvcc` into a shared library with a plain
+C interface, under `build/kernels/` at the repository root, named by a
+hash of all the sources and flags, so an edited source rebuilds and an
+unchanged one loads at once.  A failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    # no contraction into FMAs, so each kernel computes what its plain
+    # PyTorch version computes, operation for operation
+    "-fmad=false",
+    "-Xptxas", "-v",
+]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found (CUDA toolkit needed to build the kernels)")
+    return found
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> str:
+    """Compile `csrc/<name>.cu` unless it is built already.  Returns the
+    ptxas report (the registers and shared memory of its kernels), empty
+    when the library was already built; raises if nvcc fails."""
+    out = _library_path(name)
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {p.returncode}):\n{p.stdout}")
+    os.replace(tmp, out)
+    return p.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    with _lock:
+        if name not in _loaded:
+            build(name)
+            _loaded[name] = ctypes.CDLL(str(_library_path(name)))
+        return _loaded[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launcher."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

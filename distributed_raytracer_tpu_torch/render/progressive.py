@@ -1,0 +1,164 @@
+"""Progressive accumulation with checkpoint and resume.
+
+The port of distributed_raytracer_tpu/render/progressive.py for the mega
+engine.  The state is (raw_sum, samples_done, seed) and is saved
+atomically after sample batches, so a lost process resumes from its last
+batch.
+
+Noise: each batch renders its samples with two int32 seeds derived from
+(seed, samples_done) by numpy's SeedSequence.  This is the same estimator
+as the JAX CLI at the same --seed, not the same bits (JAX derives its
+seeds from a threefry key).  Bit comparison with the JAX package is made
+at render_wavefront_sum_mega and mega_render_colors with explicit seeds.
+Within the port, resume is bit-identical when the batch size matches the
+checkpoint's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import tempfile
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+
+from distributed_raytracer_tpu_torch.core.device import resolve_device
+from distributed_raytracer_tpu_torch.models.scene import Scene
+from distributed_raytracer_tpu_torch.ops.camera import Camera
+from distributed_raytracer_tpu_torch.ops.kernels.mega_render_kernel import (
+    render_wavefront_sum_mega,
+)
+
+# the JAX package's other engines and the ROADMAP items that port them
+_NOT_PORTED = {
+    "scan": "ROADMAP Queue 1 item 2 (reference bounce and renderer)",
+    "wavefront": "ROADMAP Queue 1 item 9 (host-loop paths)",
+    "fused": "ROADMAP Queue 1 item 9 (host-loop paths, kernel K10)",
+}
+
+
+@dataclasses.dataclass
+class AccumState:
+    """Progressive render state."""
+
+    raw_sum: np.ndarray  # [H*W, 3] f32 linear color sum
+    samples_done: int
+    seed: int
+    image_width: int
+    image_height: int
+    # engine and batch pin resume bit-identity: a batch's seeds depend on
+    # the sample count at its start
+    engine: str = "mega"
+    batch: int = 0
+
+    def mean_image(self) -> np.ndarray:
+        denom = max(self.samples_done, 1)
+        return (self.raw_sum / denom).reshape(self.image_height, self.image_width, 3)
+
+    def save(self, path: str) -> None:
+        # Atomic write: a crash mid-save must not corrupt the resume point.
+        d = os.path.dirname(os.path.abspath(path)) or "."
+        fd, tmp = tempfile.mkstemp(dir=d, suffix=".ckpt.tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez(
+                    f,
+                    raw_sum=self.raw_sum,
+                    samples_done=self.samples_done,
+                    seed=self.seed,
+                    image_width=self.image_width,
+                    image_height=self.image_height,
+                    engine=self.engine,
+                    batch=self.batch,
+                )
+            os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
+
+    @classmethod
+    def load(cls, path: str) -> "AccumState":
+        with np.load(path) as z:
+            return cls(
+                raw_sum=z["raw_sum"],
+                samples_done=int(z["samples_done"]),
+                seed=int(z["seed"]),
+                image_width=int(z["image_width"]),
+                image_height=int(z["image_height"]),
+                engine=str(z["engine"]),
+                batch=int(z["batch"]),
+            )
+
+    @classmethod
+    def fresh(cls, camera: Camera, seed: int, engine: str = "mega", batch: int = 0) -> "AccumState":
+        return cls(
+            raw_sum=np.zeros((camera.num_pixels, 3), np.float32),
+            samples_done=0,
+            seed=seed,
+            image_width=camera.image_width,
+            image_height=camera.image_height,
+            engine=engine,
+            batch=batch,
+        )
+
+
+def batch_seeds(seed: int, samples_done: int) -> Tuple[int, int]:
+    """(bounce_seed, cam_seed), non-negative int32, for the batch that
+    starts at samples_done."""
+    st = np.random.SeedSequence([seed % 2**64, samples_done]).generate_state(2)
+    return int(st[0] & 0x7FFFFFFF), int(st[1] & 0x7FFFFFFF)
+
+
+def render_progressive(
+    scene: Scene,
+    camera: Camera,
+    seed: int = 0,
+    spp: Optional[int] = None,
+    batch: int = 16,
+    checkpoint_path: Optional[str] = None,
+    resume: bool = True,
+    progress_cb: Optional[Callable[[AccumState], None]] = None,
+    engine: str = "mega",
+    device=None,
+) -> AccumState:
+    """Render spp samples per pixel in batches, checkpointing after every
+    batch.  A compatible checkpoint (same seed, image size, engine and
+    batch) is resumed; any other is started over.  engine="mega" is the
+    one engine ported so far."""
+    if engine in _NOT_PORTED:
+        raise NotImplementedError(
+            f"engine {engine!r} is not ported yet: {_NOT_PORTED[engine]}")
+    if engine != "mega":
+        raise ValueError(f"unknown engine {engine!r}")
+    spp = spp if spp is not None else camera.samples_per_pixel
+    dev = resolve_device(device)
+    scene, camera_dev = scene.to(dev), camera.to(dev)
+
+    state: Optional[AccumState] = None
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        state = AccumState.load(checkpoint_path)
+        if (
+            state.seed != seed
+            or state.image_width != camera.image_width
+            or state.image_height != camera.image_height
+            or state.engine != engine
+            or state.batch != batch
+        ):
+            state = None  # incompatible checkpoint: start over
+    if state is None:
+        state = AccumState.fresh(camera, seed, engine=engine, batch=batch)
+
+    while state.samples_done < spp:
+        n = min(batch, spp - state.samples_done)
+        bounce_seed, cam_seed = batch_seeds(seed, state.samples_done)
+        delta = render_wavefront_sum_mega(scene, camera_dev, n, bounce_seed, cam_seed,
+                                          device=dev)
+        state.raw_sum = state.raw_sum + delta.cpu().numpy()
+        state.samples_done += n
+        if checkpoint_path:
+            state.save(checkpoint_path)
+        if progress_cb is not None:
+            progress_cb(state)
+    return state
