@@ -8,6 +8,8 @@ with a plain PyTorch version beside it that runs on CPU tensors.  Entry
 points run on the CUDA card unless the caller asks for the CPU.
 """
 
+from distributed_raytracer_tpu_torch.grad.diff_render import image_loss
+from distributed_raytracer_tpu_torch.grad.tapegrad import make_tape_camera_tracer
 from distributed_raytracer_tpu_torch.models.scene import (
     ABSORB,
     DIELECTRIC,
@@ -24,6 +26,8 @@ __all__ = [
     "SceneBuilder",
     "Camera",
     "make_camera",
+    "make_tape_camera_tracer",
+    "image_loss",
     "LAMBERTIAN",
     "METAL",
     "DIELECTRIC",

@@ -58,14 +58,43 @@ __device__ __forceinline__ float sweep_winner(const float4* sph, int n, float ox
   return best;
 }
 
+// The unit-vector draw (Box-Muller gaussians, normalized) of one bounce,
+// keyed (rid, seed, 0..3).
+__device__ __forceinline__ void unit_draw(uint32_t rid, uint32_t seed, float ru[3]) {
+  const float u1 = hash_u01(rid, seed, 0u);
+  const float u2 = hash_u01(rid, seed, 1u);
+  const float u3 = hash_u01(rid, seed, 2u);
+  const float u4 = hash_u01(rid, seed, 3u);
+  const float rad1 = sqrtf(-2.0f * logf(u1));
+  const float g1 = rad1 * cosf(DR_TWO_PI * u2);
+  const float g2 = rad1 * sinf(DR_TWO_PI * u2);
+  const float g3 = sqrtf(-2.0f * logf(u3)) * cosf(DR_TWO_PI * u4);
+  const float gn = rsqrtf(g1 * g1 + g2 * g2 + g3 * g3 + 1e-20f);
+  ru[0] = g1 * gn;
+  ru[1] = g2 * gn;
+  ru[2] = g3 * gn;
+}
+
 // Shades one ray against the winner (index bi, attributes att[row * stride
 // + bi]).  On return either the ray finished (true; its terminal color in
 // co: sky on a miss, black when absorbed) or it scattered (false; o and d
 // hold the next ray, at the attenuation of this bounce).
+//
+// RECORD (the recording forward, csrc/mega_forward.cu) also returns the
+// bounce's four draws in rec (rux, ruy, ruz, u_choice), computed for every
+// ray whatever its material, as the JAX vector code computes them for
+// every lane, so the tape can be held against JAX's.  The draws are pure
+// functions of (rid, seed), so both instantiations compute the same
+// values; RECORD = false is the mega render kernel's shade unchanged.
+template <bool RECORD = false>
 __device__ __forceinline__ bool shade(float o[3], float d[3], float a, float t,
                                       const float4* sph, const float* att, int stride,
                                       int bi, uint32_t rid, uint32_t seed, float at[3],
-                                      float co[3]) {
+                                      float co[3], float rec[4] = nullptr) {
+  if (RECORD) {
+    unit_draw(rid, seed, rec);
+    rec[3] = hash_u01(rid, seed, 4u);
+  }
   const float dinv = rsqrtf(a);
   if (!(t < DR_BIG * 0.5f)) {  // miss: the sky gradient
     const float uy_n = d[1] * dinv;
@@ -102,7 +131,7 @@ __device__ __forceinline__ bool shade(float o[3], float d[3], float a, float t,
   }
   if (mt == 2.0f) {  // DIELECTRIC
     const float wio = att[ATT_IO * stride + bi];
-    const float u_choice = hash_u01(rid, seed, 4u);
+    const float u_choice = RECORD ? rec[3] : hash_u01(rid, seed, 4u);
     const float ior = wio > 0.0f ? wio : 1.0f;
     const float ri = front ? 1.0f / ior : ior;
     const float ux = d[0] * dinv, uy = d[1] * dinv, uz = d[2] * dinv;
@@ -140,17 +169,15 @@ __device__ __forceinline__ bool shade(float o[3], float d[3], float a, float t,
   const float wab = att[ATT_AB * stride + bi];
   float ndx = d[0], ndy = d[1], ndz = d[2];
   if (mt == 0.0f || mt == 1.0f) {
-    // gaussians via Box-Muller -> random unit vector
-    const float u1 = hash_u01(rid, seed, 0u);
-    const float u2 = hash_u01(rid, seed, 1u);
-    const float u3 = hash_u01(rid, seed, 2u);
-    const float u4 = hash_u01(rid, seed, 3u);
-    const float rad1 = sqrtf(-2.0f * logf(u1));
-    const float g1 = rad1 * cosf(DR_TWO_PI * u2);
-    const float g2 = rad1 * sinf(DR_TWO_PI * u2);
-    const float g3 = sqrtf(-2.0f * logf(u3)) * cosf(DR_TWO_PI * u4);
-    const float gn = rsqrtf(g1 * g1 + g2 * g2 + g3 * g3 + 1e-20f);
-    const float rux = g1 * gn, ruy = g2 * gn, ruz = g3 * gn;
+    float ru[3];
+    if (RECORD) {
+      ru[0] = rec[0];
+      ru[1] = rec[1];
+      ru[2] = rec[2];
+    } else {
+      unit_draw(rid, seed, ru);
+    }
+    const float rux = ru[0], ruy = ru[1], ruz = ru[2];
     if (mt == 0.0f) {  // LAMBERTIAN
       ndx = nx + rux;
       ndy = ny + ruy;

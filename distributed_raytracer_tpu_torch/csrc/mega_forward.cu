@@ -1,0 +1,86 @@
+// The recording forward: one image sample that also writes the tape the
+// backward walks.
+//
+// Replaces distributed_raytracer_tpu/ops/pallas/mega_kernel.py::
+// _mega_kernel (:102) in camera mode with recorded winner params and the
+// packed int columns (mega_forward_camera :577, the scene-gradient
+// tracer's forward).  What it computes is the same: camera rays made in
+// the kernel, sweep + shade per bounce until each ray finishes or reaches
+// max_depth, every draw keyed by (rid, depth), and one tape row per
+// bounce holding the pre-bounce state, the draws, the contribution, the
+// winner's parameters and the flags.  What it does not carry over is the
+// TPU scheduling: the 128-lane pool with private queues and refills, the
+// done flag, the parity padding of the row count and the budget (a
+// thread runs its ray to its end, so no ray is ever truncated).
+//
+// Design: the mega render kernel's (csrc/mega_render.cu): one thread per
+// ray, the scene in shared memory once per block, and the same bounce
+// loop, trace_ray (trace.cuh), instantiated with RECORD = true: the same
+// sweep_winner and shade(), so at equal seeds the colors equal the
+// render kernel's bit for bit, and one tape row written per bounce.  The
+// tape is depth-major, [max_depth, R, 32] f32, its columns and flags
+// named once in tape.cuh (JAX's row meaning).  Rows at depth >=
+// lengths[i] are not written.
+//
+// Bound: the render kernel's, FP32 throughput in the sweep: 18 FP32
+// operations per ray x live-sphere test and 8 more per test whose
+// discriminant is not negative (csrc/mega_render.cu; chip_smoke.py counts
+// them on the run's rays).  The tape rows written (2.93 per ray x 810,000
+// rays x 128 B = 304 MB at the main path) take 0.09 ms at 3.35 TB/s, so
+// bytes are not the bound.  Known cost: thread-per-ray divergence, as in
+// the render kernel.
+//
+// Built with -fmad=false (ops/kernels/_build.py), so it agrees with its
+// plain version, ops/kernels/mega_kernel.py::mega_forward_camera_plain.
+#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "trace.cuh"
+
+#define THREADS 128
+
+__global__ void __launch_bounds__(THREADS)
+mega_forward_kernel(const float* __restrict__ cols,   // [4, n]: cx, cy, cz, r2
+                    const float* __restrict__ attrs,  // [11, n]: ops/kernels/bounce.py A_*
+                    int n, const float* __restrict__ cam,
+                    const int* __restrict__ pixel_ids,  // [n_rays] or null: pix0 + i
+                    uint32_t bounce_seed, uint32_t cam_seed, int pix0, int n_rays, int w,
+                    int max_depth, float* __restrict__ tape, int* __restrict__ lengths,
+                    float* __restrict__ colors, unsigned long long* __restrict__ bounces) {
+  __shared__ float4 s_sph[MAX_SPHERES];
+  __shared__ float s_att[ATT_ROWS * MAX_SPHERES];
+  __shared__ float s_cam[CAM_ROW];
+  stage_scene(cols, attrs, n, cam, s_sph, s_att, s_cam);
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned long long my_bounces = 0;
+  if (i < n_rays) {
+    const uint32_t pix = pixel_ids ? (uint32_t)pixel_ids[i] : (uint32_t)(pix0 + i);
+    const uint32_t rid = pix;  // the tracer passes no rid base
+    float col[3];
+    const int rows = trace_ray<true>(s_sph, s_att, n, s_cam, pix, rid, bounce_seed, cam_seed,
+                                     (uint32_t)w, max_depth, col,
+                                     tape + (size_t)i * TAPE_COLS,
+                                     (size_t)n_rays * TAPE_COLS, i);
+    my_bounces = rows;
+    lengths[i] = rows;
+    colors[3 * i + 0] = col[0];
+    colors[3 * i + 1] = col[1];
+    colors[3 * i + 2] = col[2];
+  }
+  add_bounces(my_bounces, bounces);
+}
+
+extern "C" int mega_forward_launch(const float* cols, const float* attrs, int n, const float* cam,
+                                   const int* pixel_ids, int bounce_seed, int cam_seed, int pix0,
+                                   int n_rays, int w, int max_depth, float* tape, int* lengths,
+                                   float* colors, unsigned long long* bounces, void* stream) {
+  if (n < 1 || n > MAX_SPHERES || n_rays < 1 || w < 1 || max_depth < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = (n_rays + THREADS - 1) / THREADS;
+  mega_forward_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      cols, attrs, n, cam, pixel_ids, (uint32_t)bounce_seed, (uint32_t)cam_seed, pix0, n_rays, w,
+      max_depth, tape, lengths, colors, bounces);
+  return (int)cudaGetLastError();
+}

@@ -13,11 +13,16 @@
 // Design: one thread per (sample, pixel) ray.  Each block first copies
 // the scene's sweep columns (cx, cy, cz, r2) and seven winner attributes
 // into shared memory (512 x 11 x 4 B = 22.5 KB at most), then every
-// thread walks its ray through up to max_depth bounces.
+// thread walks its ray through up to max_depth bounces (trace_ray<false>
+// in trace.cuh, the loop the recording forward shares).
 //
-// Bound: FP32 issue in the sweep, about 20 FP32 operations per ray x
-// sphere test; bytes are negligible (the scene stays in shared memory and
-// each ray writes 12 B).  Known cost: thread-per-ray divergence, since
+// Bound: FP32 throughput in the sweep.  Each ray x live-sphere test costs 18
+// FP32 operations (oc 3, h 5, c_q 6, disc 3, the compare 1), and a test
+// whose discriminant is not negative 8 more (sqrt, two roots of 2 each,
+// three compares); padding spheres (r2 = -1) never hit and are not
+// counted.  chip_smoke.py counts both kinds of test on the run's rays.
+// Bytes are negligible (the scene stays in shared memory and each ray
+// writes 12 B).  Known cost: thread-per-ray divergence, since
 // the rays of a warp finish after different numbers of bounces and take
 // different material branches.  Regrouping rays by state is work for a
 // later kernel.
@@ -28,10 +33,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "bounce.cuh"
-#include "camera.cuh"
+#include "trace.cuh"
 
-#define MAX_SPHERES 512
 #define THREADS 128
 
 __global__ void __launch_bounds__(THREADS)
@@ -44,13 +47,7 @@ mega_render_kernel(const float* __restrict__ cols,   // [4, n]: cx, cy, cz, r2
   __shared__ float4 s_sph[MAX_SPHERES];
   __shared__ float s_att[ATT_ROWS * MAX_SPHERES];
   __shared__ float s_cam[CAM_ROW];
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    s_sph[j] = make_float4(cols[j], cols[n + j], cols[2 * n + j], cols[3 * n + j]);
-#pragma unroll
-    for (int r = 0; r < ATT_ROWS; ++r) s_att[r * MAX_SPHERES + j] = attrs[(3 + r) * n + j];
-  }
-  if (threadIdx.x < CAM_ROW) s_cam[threadIdx.x] = cam[threadIdx.x];
-  __syncthreads();
+  stage_scene(cols, attrs, n, cam, s_sph, s_att, s_cam);
 
   const int local = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned long long my_bounces = 0;
@@ -59,35 +56,14 @@ mega_render_kernel(const float* __restrict__ cols,   // [4, n]: cx, cy, cz, r2
     if (local < n_valid) {
       const uint32_t pix = (uint32_t)(pix0 + local);
       const uint32_t rid = rid_base + pix;  // global ray id, wraps as int32 does
-      float o[3], d[3];
-      camera_ray(s_cam, pix, rid, cam_seed, (uint32_t)w, o, d);
-      float atten[3] = {1.0f, 1.0f, 1.0f};
-      for (int depth = 0; depth < max_depth; ++depth) {
-        const float a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-        const float inv_a = 1.0f / a;
-        int bi;
-        const float t = sweep_winner(s_sph, n, o[0], o[1], o[2], d[0], d[1], d[2], a, inv_a, &bi);
-        ++my_bounces;
-        const uint32_t seed = bounce_seed + (uint32_t)depth * 65537u;
-        float at[3], co[3];
-        if (shade(o, d, a, t, s_sph, s_att, MAX_SPHERES, bi, rid, seed, at, co)) {
-          col[0] = atten[0] * co[0];
-          col[1] = atten[1] * co[1];
-          col[2] = atten[2] * co[2];
-          break;
-        }
-        atten[0] = atten[0] * at[0];
-        atten[1] = atten[1] * at[1];
-        atten[2] = atten[2] * at[2];
-      }  // a ray still alive at max_depth contributes black
+      my_bounces = trace_ray<false>(s_sph, s_att, n, s_cam, pix, rid, bounce_seed, cam_seed,
+                                    (uint32_t)w, max_depth, col);
     }
     colors[3 * local + 0] = col[0];
     colors[3 * local + 1] = col[1];
     colors[3 * local + 2] = col[2];
   }
-  // one atomic per warp for the bounce total
-  for (int off = 16; off > 0; off >>= 1) my_bounces += __shfl_down_sync(0xFFFFFFFFu, my_bounces, off);
-  if ((threadIdx.x & 31) == 0 && my_bounces) atomicAdd(bounces, my_bounces);
+  add_bounces(my_bounces, bounces);
 }
 
 extern "C" int mega_render_launch(const float* cols, const float* attrs, int n,

@@ -47,21 +47,32 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> str:
-    """Compile `csrc/<name>.cu` unless it is built already.  Returns the
-    ptxas report (the registers and shared memory of its kernels), empty
-    when the library was already built; raises if nvcc fails."""
-    out = _library_path(name)
-    if out.exists():
-        return ""
+def build(*names: str) -> Dict[str, str]:
+    """Compile `csrc/<name>.cu` for each name not built already, one nvcc
+    per source, all started together.  Returns each name's ptxas report
+    (the registers and shared memory of its kernels), empty when the
+    library was already built; raises if any nvcc fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if p.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {p.returncode}):\n{p.stdout}")
-    os.replace(tmp, out)
-    return p.stdout
+    procs = {}
+    for name in names:
+        out = _library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    reports = {name: "" for name in names}
+    failed = []
+    for name, (p, tmp, out) in procs.items():
+        reports[name] = p.communicate()[0]
+        if p.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu (exit {p.returncode}):\n{reports[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -19,7 +19,7 @@ CUDA kernel runs every ray to its end.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -66,12 +66,26 @@ def mega_render_plain(cols, attrs, cam_row, *, bounce_seed: int, cam_seed: int,
     dev = cols.device
     pix = pix0 + torch.arange(n_valid, dtype=torch.int64, device=dev)
     rid = (rid_base + pix) & _MASK32
+    colors = torch.zeros(n_cap, 3, dtype=torch.float32, device=dev)
+    bounces = trace_plain(cols, attrs, cam_row, pix, rid, bounce_seed=bounce_seed,
+                          cam_seed=cam_seed, w=w, max_depth=max_depth, colors=colors)
+    return colors, torch.tensor([bounces], dtype=torch.int64, device=dev)
+
+
+def trace_plain(cols, attrs, cam_row, pix, rid, *, bounce_seed: int, cam_seed: int, w: int,
+                max_depth: int, colors: torch.Tensor, record: Optional[Callable] = None) -> int:
+    """The plain trace of rays 0..R-1 (pixel ids pix, ray ids rid, int64
+    [R]) shared by the render and the recording forward.  Writes each
+    finished ray's color into colors[:R]; when given, record(depth, rays,
+    o, d, atten, shade, t, winner, fin) is called with every chunk of
+    live rays, their pre-bounce state and what the bounce computed.
+    Returns the number of (ray, bounce) sweeps run."""
+    dev = cols.device
     ox, oy, oz, dx, dy, dz = camera_ray_rows(cam_row, pix, rid, cam_seed, w)
     o = torch.stack([ox, oy, oz], -1)
     d = torch.stack([dx, dy, dz], -1)
     atten = torch.ones_like(o)
-    colors = torch.zeros(n_cap, 3, dtype=torch.float32, device=dev)
-    alive = torch.arange(n_valid, dtype=torch.int64, device=dev)
+    alive = torch.arange(pix.numel(), dtype=torch.int64, device=dev)
     bounces = 0
     for depth in range(max_depth):
         if alive.numel() == 0:
@@ -91,6 +105,8 @@ def mega_render_plain(cols, attrs, cam_row, *, bounce_seed: int, cam_seed: int,
             v = shade_vals(rx, ry, rz, qx, qy, qz, a, act, t, win, draws)
             fin = v[12] > 0
             at = atten[idx]
+            if record is not None:
+                record(depth, idx, ro, rd, at, v, t, win, fin)
             done = idx[fin]
             colors[done] = at[fin] * torch.stack(v[9:12], -1)[fin]
             o[idx] = torch.stack(v[0:3], -1)
@@ -99,7 +115,7 @@ def mega_render_plain(cols, attrs, cam_row, *, bounce_seed: int, cam_seed: int,
             still.append(idx[~fin])
         alive = torch.cat(still)
     # rays still alive after max_depth bounces contribute black
-    return colors, torch.tensor([bounces], dtype=torch.int64, device=dev)
+    return bounces
 
 
 def _argtypes(fn):
@@ -109,12 +125,9 @@ def _argtypes(fn):
     return fn
 
 
-def mega_render_cuda(cols, attrs, cam_row, *, bounce_seed: int, cam_seed: int,
-                     rid_base: int, pix0: int, n_valid: int, n_cap: int, w: int,
-                     max_depth: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch csrc/mega_render.cu on the current stream (no sync).  Same
-    arguments and results as mega_render_plain; the bounce count is
-    summed by the kernel."""
+def check_sweep_args(cols, attrs, cam_row) -> int:
+    """Check the scene and camera operands a kernel reads (CUDA float32,
+    contiguous, [4, n], [11, n] and [24], n <= MAX_SPHERES); returns n."""
     n = cols.shape[1]
     for name, x, shape in (("cols", cols, (4, n)), ("attrs", attrs, (A_ROWS, n)),
                            ("cam_row", cam_row, (CAM_ROW,))):
@@ -124,6 +137,16 @@ def mega_render_cuda(cols, attrs, cam_row, *, bounce_seed: int, cam_seed: int,
             raise ValueError(f"{name} must be contiguous of shape {shape}, got {tuple(x.shape)}")
     if not 1 <= n <= MAX_SPHERES:
         raise NotImplementedError(_too_many(n))
+    return n
+
+
+def mega_render_cuda(cols, attrs, cam_row, *, bounce_seed: int, cam_seed: int,
+                     rid_base: int, pix0: int, n_valid: int, n_cap: int, w: int,
+                     max_depth: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/mega_render.cu on the current stream (no sync).  Same
+    arguments and results as mega_render_plain; the bounce count is
+    summed by the kernel."""
+    n = check_sweep_args(cols, attrs, cam_row)
     if not 0 <= n_valid <= n_cap:
         raise ValueError(f"need 0 <= n_valid <= n_cap, got {n_valid}, {n_cap}")
     colors = torch.empty(n_cap, 3, dtype=torch.float32, device=cols.device)

@@ -1,0 +1,138 @@
+"""The reverse tape walk: scene-parameter cotangents from the recorded tape.
+
+Port of distributed_raytracer_tpu/ops/pallas/mega_walk_bwd_kernel.py
+(`mega_walk_backward` with the packed tape, the backward of the scene-
+gradient tracer), with its VJP body mega_bwd_kernel.py::_local_f_rows as
+ops/kernels/local_f.py.  On a CUDA tensor `mega_walk_backward` launches
+the hand-written kernel csrc/mega_walk_bwd.cu; on a CPU tensor it runs
+`mega_walk_backward_plain`: the same walk with torch autograd of
+local_f_rows as each row's VJP.
+
+Every entry returns g_pm [n + 1, 9]: per-sphere cotangents of (center 3,
+radius, albedo 3, fuzz, ior), row n being the no-hit bin.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import torch
+
+from distributed_raytracer_tpu_torch.ops.kernels import _build
+from distributed_raytracer_tpu_torch.ops.kernels.local_f import local_f_rows
+from distributed_raytracer_tpu_torch.ops.kernels.mega_kernel import (
+    F_ACT,
+    F_FIN,
+    F_HIT,
+    T_AT,
+    T_CW,
+    T_FLG,
+    T_IDX,
+    T_IW,
+    T_MT,
+    T_RU,
+    T_U,
+    TAPE_COLS,
+)
+from distributed_raytracer_tpu_torch.ops.kernels.mega_render_kernel import MAX_SPHERES
+
+N_PARAMS = 9
+THREADS = 128      # csrc/mega_walk_bwd.cu
+BLOCKS_PER_SM = 8  # resident blocks the grid-stride launch aims for
+
+
+def int_col(rows: torch.Tensor, col: int) -> torch.Tensor:
+    """Column col of tape rows [m, 32], read as the int32 it holds."""
+    return rows[:, col].contiguous().view(torch.int32)
+
+
+def _check_args(tape, lengths, g_color, n):
+    r = lengths.shape[0]
+    if tape.dim() != 3 or tape.shape[1:] != (r, TAPE_COLS) or tape.dtype != torch.float32:
+        raise ValueError(f"tape must be float32 [depth, {r}, {TAPE_COLS}], got "
+                         f"{tape.dtype} {tuple(tape.shape)}")
+    if lengths.dtype != torch.int32 or tuple(g_color.shape) != (r, 3):
+        raise ValueError(f"need int32 lengths [{r}] and g_color [{r}, 3], got "
+                         f"{lengths.dtype} and {tuple(g_color.shape)}")
+    if not 1 <= n <= MAX_SPHERES:
+        raise ValueError(f"need 1 <= n <= {MAX_SPHERES} spheres, got {n}")
+
+
+def mega_walk_backward_plain(tape, lengths, g_color, n: int,
+                             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version on any device: the kernel's reverse walk with torch
+    autograd as the VJP.  Depth by depth from the deepest, each live row's
+    inputs (o, d, atten and the winner's parameters) are read off the
+    tape, its output cotangents are the carry from the row after plus
+    g_color at a finishing row, and autograd of local_f_rows gives its
+    input cotangents: (o, d, atten)'s are carried to the row before, the
+    parameters' are summed into the winner's bin (bin n when the row hit
+    nothing).  Like the kernel, each row is linearized at its recorded
+    state, not at a replayed one.  dtype is the arithmetic's precision:
+    float64 evaluates the same walk on the same f32 tape with little
+    rounding, a referee for the f32 versions."""
+    _check_args(tape, lengths, g_color, n)
+    dev = tape.device
+    g_pm = torch.zeros(n + 1, N_PARAMS, dtype=dtype, device=dev)
+    lens = lengths.to(torch.int64)
+    carry = torch.zeros(lengths.shape[0], 9, dtype=dtype, device=dev)
+    for depth in range(tape.shape[0] - 1, -1, -1):
+        rays = torch.nonzero(lens > depth).squeeze(1)
+        if rays.numel() == 0:
+            continue
+        rows = tape[depth, rays].detach()
+        flags = int_col(rows, T_FLG)
+        hit = (flags & F_HIT) != 0
+        fin = (flags & F_FIN) != 0
+        vals = rows.to(dtype)
+        x = vals[:, :T_AT + 3].clone().requires_grad_()
+        p = vals[:, T_CW:T_IW + 1].clone().requires_grad_()
+        with torch.enable_grad():
+            out = local_f_rows(*x.unbind(-1), *p.unbind(-1), vals[:, T_MT], vals[:, T_RU],
+                               vals[:, T_RU + 1], vals[:, T_RU + 2], vals[:, T_U], hit,
+                               (flags & F_ACT) != 0)
+            cot = torch.cat([carry[rays], torch.where(fin[:, None], g_color[rays].to(dtype),
+                                                      0.0)], 1)
+            used = [k for k in range(12) if out[k].requires_grad]
+            gx, gp = torch.autograd.grad([out[k] for k in used], [x, p],
+                                         [cot[:, k] for k in used], allow_unused=True)
+        if gx is not None:
+            carry[rays] = gx
+        if gp is not None:
+            g_pm.index_add_(0, torch.where(hit, int_col(rows, T_IDX), n).to(torch.int64), gp)
+    return g_pm
+
+
+def mega_walk_backward_cuda(tape, lengths, g_color, n: int) -> torch.Tensor:
+    """Launch csrc/mega_walk_bwd.cu on the current stream (no sync).  Same
+    arguments and result as mega_walk_backward_plain."""
+    _check_args(tape, lengths, g_color, n)
+    for name, x in (("tape", tape), ("lengths", lengths), ("g_color", g_color)):
+        if x.device.type != "cuda" or x.device != tape.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on the tape's CUDA device")
+    if g_color.dtype != torch.float32:
+        raise ValueError("g_color must be float32")
+    r = lengths.shape[0]
+    dev = tape.device
+    g_pm = torch.zeros(n + 1, N_PARAMS, dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = min(-(-r // THREADS), sms * BLOCKS_PER_SM)
+    fn = _build.load("mega_walk_bwd").mega_walk_bwd_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, i, i, i, p, p]
+    fn.restype = ctypes.c_int
+    err = fn(tape.data_ptr(), lengths.data_ptr(), g_color.data_ptr(), r, n, blocks,
+             g_pm.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mega_walk_bwd_launch")
+    mega_walk_backward_cuda.launches += 1
+    return g_pm
+
+
+mega_walk_backward_cuda.launches = 0
+
+
+def mega_walk_backward(tape, lengths, g_color, n: int) -> torch.Tensor:
+    """Scene-parameter cotangents [n + 1, 9]: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if tape.device.type == "cpu":
+        return mega_walk_backward_plain(tape, lengths, g_color, n)
+    return mega_walk_backward_cuda(tape, lengths, g_color, n)

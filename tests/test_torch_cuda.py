@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain version on the card.
+"""The port's CUDA kernels against their plain versions on the card.
 
 These need an NVIDIA card with nvcc; elsewhere they skip.  Run them on
 the card with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
@@ -7,8 +7,11 @@ the card with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 import pytest
 import torch
 
+from distributed_raytracer_tpu_torch import image_loss, make_tape_camera_tracer
 from distributed_raytracer_tpu_torch.models import presets
+from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
 from distributed_raytracer_tpu_torch.ops.kernels import mega_render_kernel as mrk
+from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_bwd_kernel as wbk
 
 pytestmark = pytest.mark.cuda
 
@@ -52,3 +55,69 @@ def test_kernel_shard_zero_fills_capacity(card):
     torch.cuda.synchronize()
     assert torch.count_nonzero(colors[300:]) == 0
     assert torch.isfinite(colors).all()
+
+
+def _fwd_args(scene, camera, card):
+    cols, attrs, cam_row = mrk.prepare(scene, camera, card)
+    return (cols, attrs, cam_row), dict(bounce_seed=123456, cam_seed=987654, pix0=0,
+                                        n_valid=camera.num_pixels, w=camera.image_width,
+                                        max_depth=camera.max_depth)
+
+
+def _written_rows(out):
+    """The tape rows the forward wrote, as int32 bits, in (depth, ray) order."""
+    depth = torch.arange(out.tape.shape[0], device=out.tape.device)[:, None]
+    return out.tape[depth < out.lengths[None, :].long()].view(torch.int32)
+
+
+@pytest.mark.parametrize("which,depth", [("config2", 8), ("final", 8)])
+def test_recording_forward_matches_plain_on_card(card, which, depth):
+    scene = (presets.config2()[0] if which == "config2"
+             else presets.rtiow_final_scene(pad_to=512))
+    camera = presets.final_scene_camera(64).replace(max_depth=depth)
+    args, kw = _fwd_args(scene, camera, card)
+    before = mk.mega_forward_camera_cuda.launches
+    got = mk.mega_forward_camera(*args, None, **kw)
+    assert mk.mega_forward_camera_cuda.launches == before + 1
+    want = mk.mega_forward_camera_plain(*args, None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.lengths, want.lengths)
+    assert torch.equal(_written_rows(got), _written_rows(want))
+    assert torch.equal(got.colors, want.colors)
+    # at equal seeds the colors are the render kernel's (sample 0)
+    k5, _ = mrk.mega_render_cuda(*args, rid_base=0, pix0=0, n_valid=camera.num_pixels,
+                                 n_cap=camera.num_pixels, w=camera.image_width,
+                                 max_depth=depth, bounce_seed=123456, cam_seed=987654)
+    torch.cuda.synchronize()
+    assert torch.equal(got.colors, k5)
+
+
+def test_walk_backward_matches_plain_on_card(card):
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = presets.final_scene_camera(64).replace(max_depth=8)
+    args, kw = _fwd_args(scene, camera, card)
+    out = mk.mega_forward_camera(*args, None, **kw)
+    g = torch.randn(camera.num_pixels, 3, generator=torch.Generator().manual_seed(3)).to(card)
+    before = wbk.mega_walk_backward_cuda.launches
+    got = wbk.mega_walk_backward(out.tape, out.lengths, g, scene.num_spheres)
+    assert wbk.mega_walk_backward_cuda.launches == before + 1
+    want = wbk.mega_walk_backward_plain(out.tape, out.lengths, g, scene.num_spheres)
+    torch.cuda.synchronize()
+    n = scene.num_spheres
+    scale = want[:n].abs().max(dim=0).values + 1e-8
+    # f32 sums in another order (atomics): the band of tests/test_mega_bwd.py:104
+    assert float(((got[:n] - want[:n]) / scale).abs().max()) < 1e-4
+    assert torch.isfinite(got).all()
+
+
+def test_tracer_gradients_on_card(card):
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = presets.final_scene_camera(64).replace(max_depth=8)
+    tracer = make_tape_camera_tracer(camera, 11, 22, iota_pix=True)
+    p = {k: v.to(card).requires_grad_() for k, v in scene.diff_params().items()}
+    colors = tracer(scene.with_diff_params(p), torch.arange(camera.num_pixels))
+    image_loss(colors, torch.zeros_like(colors)).backward()
+    for k, v in p.items():
+        assert torch.isfinite(v.grad).all(), k
+        assert float(v.grad[487:].abs().max()) == 0.0, k  # padding spheres
+    assert float(p["albedo"].grad.abs().max()) > 0.0

@@ -1,0 +1,103 @@
+"""The port's replay bounce (ops/kernels/local_f.py) against the JAX
+package's _local_f_rows (mega_bwd_kernel.py:72) on the random rows of
+tests/test_mega_bwd.py:188-203: all five materials, hit/act mixes.
+
+Bands: values atol 1e-6; the VJP (torch autograd against jax.vjp, seeded
+cotangents) per input, normalized by that input's largest cotangent,
+atol 1e-5 — float32 rounding of two differently ordered reverse sweeps."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_raytracer_tpu.ops.pallas.mega_bwd_kernel import _local_f_rows
+from distributed_raytracer_tpu_torch.ops.kernels.local_f import local_f_rows
+
+torch.set_num_threads(1)
+N_DIFF = 18  # o3 d3 atten3 center3 radius albedo3 fuzz ior
+
+
+def _rows(seed=0, b=256):
+    """The random rows of tests/test_mega_bwd.py::test_local_f_rows_matches_local_f,
+    as 25 numpy rows in _local_f_rows's argument order."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(b, 3)).astype(np.float32)
+    d = rng.normal(size=(b, 3)).astype(np.float32)
+    at = rng.uniform(0.2, 1.0, (b, 3)).astype(np.float32)
+    cw = o + rng.normal(size=(b, 3)).astype(np.float32) * np.float32(2.0)
+    rw = rng.uniform(0.3, 2.0, (b,)).astype(np.float32)
+    aw = rng.uniform(0, 1, (b, 3)).astype(np.float32)
+    fw = rng.uniform(0, 0.5, (b,)).astype(np.float32)
+    iw = rng.uniform(1.1, 2.0, (b,)).astype(np.float32)
+    mat = rng.integers(0, 5, (b,)).astype(np.float32)
+    ruv = rng.normal(size=(b, 3)).astype(np.float32)
+    ruv = ruv / np.linalg.norm(ruv, axis=-1, keepdims=True)
+    u = rng.uniform(0, 1, (b,)).astype(np.float32)
+    hit = rng.integers(0, 2, (b,)).astype(bool)
+    act = rng.integers(0, 2, (b,)).astype(bool) | hit
+    cols = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], at[:, 0], at[:, 1], at[:, 2],
+            cw[:, 0], cw[:, 1], cw[:, 2], rw, aw[:, 0], aw[:, 1], aw[:, 2], fw, iw,
+            mat, ruv[:, 0], ruv[:, 1], ruv[:, 2], u]
+    return [np.ascontiguousarray(c, np.float32) for c in cols] + [hit, act]
+
+
+def _jax_args(rows):
+    # JAX's kernel body applies the backward's guards outside the call
+    # (mega_walk_bwd_kernel.py:124,129); apply them here too
+    rows = list(rows)
+    hit = rows[23]
+    rows[12] = np.where(hit, rows[12], np.float32(1.0))
+    rows[17] = np.where(hit, rows[17], np.float32(1.0))
+    return [jnp.asarray(r)[None, :] for r in rows]
+
+
+def test_local_f_rows_matches_jax():
+    rows = _rows()
+    want = _local_f_rows(*_jax_args(rows))
+    got = local_f_rows(*[torch.from_numpy(r) for r in rows])
+    for k, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w)[0], atol=1e-6, err_msg=f"output {k}")
+
+
+def test_local_f_rows_vjp_matches_jax():
+    rows = _rows(seed=1)
+    rng = np.random.default_rng(7)
+    cots = [rng.normal(size=rows[0].shape).astype(np.float32) for _ in range(12)]
+
+    args = _jax_args(rows)
+    _, vjp = jax.vjp(lambda *x: _local_f_rows(*x, *args[N_DIFF:]), *args[:N_DIFF])
+    want = vjp(tuple(jnp.asarray(c)[None, :] for c in cots))
+
+    xs = [torch.from_numpy(r).requires_grad_() for r in rows[:N_DIFF]]
+    rest = [torch.from_numpy(r) for r in rows[N_DIFF:]]
+    out = local_f_rows(*xs, *rest)
+    got = torch.autograd.grad(out, xs, [torch.from_numpy(c) for c in cots], allow_unused=True)
+    for k, (g, w) in enumerate(zip(got, want)):
+        w = np.asarray(w)[0]
+        g = np.zeros_like(w) if g is None else g.numpy()
+        scale = np.abs(w).max() + 1e-12
+        np.testing.assert_allclose(g / scale, w / scale, atol=1e-5, err_msg=f"input {k}")
+
+
+@pytest.mark.parametrize("mat", [0, 1, 2, 3, 4])
+def test_miss_and_idle_rows_pass_through(mat):
+    """A row that is not active passes o, d, atten through with no color;
+    an active miss finishes with atten times the sky and no dependence on
+    the winner's parameters, whatever they hold."""
+    rows = [torch.from_numpy(r) for r in _rows(seed=2, b=8)]
+    rows[18] = torch.full((8,), float(mat))
+    rows[12] = torch.zeros(8)          # a miss's radius, guarded to 1
+    rows[23] = torch.zeros(8, dtype=torch.bool)
+    act = torch.tensor([True, False] * 4)
+    rows[24] = act
+    params = [r.clone().requires_grad_() for r in rows[9:18]]
+    out = local_f_rows(*rows[:9], *params, *rows[18:])
+    for k in range(9):
+        assert torch.equal(out[k], rows[k]), k
+    assert torch.equal(torch.stack(out[9:12])[:, ~act], torch.zeros(3, 4))
+    assert bool((torch.stack(out[9:12])[:, act] > 0).all())
+    grads = torch.autograd.grad(sum(o.sum() for o in out), params, allow_unused=True)
+    for g in grads:
+        assert g is None or not bool(g.any())

@@ -5,6 +5,10 @@ import subprocess
 import sys
 
 import pytest
+import torch
+
+from distributed_raytracer_tpu_torch import make_tape_camera_tracer
+from distributed_raytracer_tpu_torch.ops.camera import make_camera
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "distributed_raytracer_tpu_torch"
@@ -25,7 +29,9 @@ def _modules():
 
 def test_port_imports_no_jax():
     mods = _modules()
-    assert "distributed_raytracer_tpu_torch.cli" in mods
+    for m in ("cli", "grad.tapegrad", "grad.diff_render", "ops.kernels.local_f",
+              "ops.kernels.mega_kernel", "ops.kernels.mega_walk_bwd_kernel"):
+        assert f"distributed_raytracer_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -45,3 +51,14 @@ def test_port_sources_name_no_jax_module(suffix):
         text = p.read_text()
         assert "distributed_raytracer_tpu." not in text, p
         assert "import jax" not in text and "from jax" not in text, p
+
+
+def test_tracer_defaults_to_the_card():
+    """device=None means the CUDA card: without one the tracer refuses to
+    run rather than carry on on the CPU."""
+    camera = make_camera(image_width=4)
+    if torch.cuda.is_available():
+        make_tape_camera_tracer(camera, 1, 2)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_tape_camera_tracer(camera, 1, 2)
