@@ -6,9 +6,11 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card, drives the
 two main paths through their entry points on the RTiOW final scene at
 1200x675, depth 50 (the progressive forward render, with resume and the
-CLI; and the scene-gradient training step, with three Adam steps), and
-prints one JSON line of kernel numbers and, last, one JSON line with the
-device.  Any failed phase raises, so the exit code is nonzero and no
+CLI; and the scene-gradient training step, with three Adam steps), then
+the walk engine's two on bench.py's 8,192-sphere field at 1024x576,
+depth 8 (the walk training step, and the progressive render routed past
+512 spheres), and prints one JSON line of kernel numbers and, last, one
+JSON line with the device.  Any failed phase raises, so the exit code is nonzero and no
 result line is printed.  Without a CUDA card it exits with code 2.
 
     python3 chip_smoke.py --record out/chip_smoke.json
@@ -29,17 +31,27 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ("mega_render", "mega_forward", "mega_walk_bwd")
+KERNELS = ("mega_render", "mega_forward", "mega_walk_bwd", "mega_walk")
 SOURCE = "distributed_raytracer_tpu_torch/csrc/{}.cu"
 REPLACES = {
     "mega_render": "distributed_raytracer_tpu/ops/pallas/mega_render_kernel.py:179",
     "mega_forward": "distributed_raytracer_tpu/ops/pallas/mega_kernel.py:102",
     "mega_walk_bwd": "distributed_raytracer_tpu/ops/pallas/mega_walk_bwd_kernel.py:59",
+    "mega_walk": "distributed_raytracer_tpu/ops/pallas/mega_walk_kernel.py:198",
 }
+# each row of the kernels line and the source it launches: K9 has two
+# instantiations (render, pallas_call mega_walk_kernel.py:602; record,
+# :734), K8 two shapes (the dense tracer's 512 spheres, whose bins all sit
+# in shared memory; the walk's 8,448 slots, most of whose bins go to g_pm
+# by global atomics)
+ROW_SOURCE = {"mega_forward": "mega_forward", "mega_walk_bwd": "mega_walk_bwd",
+              "mega_walk": "mega_walk", "mega_walk_record": "mega_walk",
+              "mega_walk_bwd_global": "mega_walk_bwd"}
 NO_LIBRARY = {  # why library_ms is null
     "mega_render": "no single PyTorch call computes a path-traced image sample",
     "mega_forward": "no single PyTorch call computes a recording path-traced sample",
     "mega_walk_bwd": "no single PyTorch call computes the reverse walk of a bounce tape",
+    "mega_walk": "no single PyTorch call computes a path-traced sample with a chunk walk",
 }
 FP32_LANES_PER_SM = 128      # Hopper SM: 4 partitions x 32 FP32 lanes
 # FP32 operations of one ray x sphere test in the sweep (bounce.cuh
@@ -48,6 +60,11 @@ FP32_LANES_PER_SM = 128      # Hopper SM: 4 partitions x 32 FP32 lanes
 # each), three compares
 FLOPS_PER_TEST = 18
 FLOPS_PER_NEAR_TEST = 8
+# FP32 operations of one chunk bound test of the walk (trace.cuh
+# chunk_admits): ob 3, h_b 5, c_b 6, disc_b 3, sqrt 1, near and far 2
+# each, three compares
+FLOPS_PER_BOUND_TEST = 25
+WALK_CHUNK = 256             # slots per walk chunk, as render_progressive and bench.py use
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 BOUNCE_SEED, CAM_SEED = 123456, 987654
 # FP32 operations of one forward evaluation of the replay bounce
@@ -65,7 +82,10 @@ K8_BAND = 1e-4
 # walks reaches about 4.5e-4 of the big glass sphere's ior column (its
 # entry sums per-ray terms of both signs, many far larger than the sum);
 # both walks stand 7.3e-3 to 7.8e-3 from the same walk in float64 there
-# (the referee below), and the kernel's atomic order alone moves it 1e-6
+# (the referee below), and the kernel's atomic order alone moves it 1e-6;
+# also at the walk's main shape (1024x576 depth 8, 8,448 slots), where the
+# two walks part by 1.09e-4 of an albedo column, also summed over terms of
+# both signs, and the referee is printed as well
 K8_MAIN_BAND = 1e-3
 
 
@@ -197,6 +217,66 @@ def walk_work(out, n_sph: int):
     return flops * REVERSE_FACTOR, nbytes, n_used
 
 
+def grazing_rays(out, ratio: float = 1e-3) -> torch.Tensor:
+    """[R] bool: the rays with a grazing hit, a hit row whose discriminant
+    disc = h*h - a*c is below ratio * h*h (float64, from the recorded row).
+    There disc is the difference of two nearly equal numbers and the
+    derivative of t carries 1 / sqrt(disc), so one f32 rounding moves a
+    geometric gradient far (ROADMAP Queue 3)."""
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
+
+    graz = torch.zeros(out.lengths.shape[0], dtype=torch.bool, device=out.tape.device)
+    for depth in range(out.tape.shape[0]):
+        live = out.lengths > depth
+        rows = out.tape[depth]
+        hit = live & ((rows[:, mk.T_FLG].contiguous().view(torch.int32) & mk.F_HIT) != 0)
+        t = rows[:, :mk.T_RW + 1].double()
+        o, d, c = t[:, mk.T_O:mk.T_O + 3], t[:, mk.T_D:mk.T_D + 3], t[:, mk.T_CW:mk.T_CW + 3]
+        oc = c - o
+        h = (d * oc).sum(-1)
+        disc = h * h - (d * d).sum(-1) * ((oc * oc).sum(-1) - t[:, mk.T_RW] ** 2)
+        graz |= hit & (disc < ratio * h * h)
+    return graz
+
+
+def k8_check(dev, label, out, n, band, referee=False):
+    """K8 against its plain version on one tape, each column of g_pm
+    normalized by its max (run twice, for the atomics' run-to-run
+    spread); with referee, both against the same walk in float64.
+    Returns (max abs err, max normalized err, plain ms, g_color)."""
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_bwd_kernel as wbk
+
+    g = torch.randn(out.lengths.shape[0], 3,
+                    generator=torch.Generator().manual_seed(3)).to(dev)
+    got = wbk.mega_walk_backward_cuda(out.tape, out.lengths, g, n)
+    again = wbk.mega_walk_backward_cuda(out.tape, out.lengths, g, n)
+    want, plain_ms = cuda_timed(lambda: wbk.mega_walk_backward_plain(out.tape, out.lengths,
+                                                                     g, n))
+    err = col_err(got[:n], want[:n])
+    fmt = lambda e: [f"{x:.2e}" for x in e.tolist()]
+    log(f"[k8] {label}: per-column normalized err {fmt(err)}, run-to-run "
+        f"{float(col_err(again[:n], got[:n]).max()):.2e} normalized "
+        f"({float((got - again).abs().max()):.3e} abs), plain {plain_ms:.1f} ms")
+    if referee:  # both f32 walks against the same walk in float64
+        exact = wbk.mega_walk_backward_plain(out.tape, out.lengths, g, n,
+                                             dtype=torch.float64)[:n]
+        log(f"[k8] {label}: vs the float64 walk, kernel {fmt(col_err(got[:n].double(), exact))}"
+            f", plain {fmt(col_err(want[:n].double(), exact))}")
+        # the same without the rays that have a grazing hit
+        graz = grazing_rays(out)
+        g_calm = torch.where(graz[:, None], 0.0, g)
+        exact = wbk.mega_walk_backward_plain(out.tape, out.lengths, g_calm, n,
+                                             dtype=torch.float64)[:n]
+        k_calm = wbk.mega_walk_backward_cuda(out.tape, out.lengths, g_calm, n)[:n]
+        p_calm = wbk.mega_walk_backward_plain(out.tape, out.lengths, g_calm, n)[:n]
+        log(f"[k8] {label}: {int(graz.sum()):,} of {graz.numel():,} rays have a grazing hit "
+            f"(disc < 1e-3 h^2); without them, vs the float64 walk, kernel "
+            f"{fmt(col_err(k_calm.double(), exact))}, plain {fmt(col_err(p_calm.double(), exact))}")
+    require(bool(torch.isfinite(got).all()), f"{label}: K8 gradients not finite")
+    require(float(err.max()) < band, f"{label}: K8 vs plain {float(err.max()):.3e}")
+    return float((got[:n] - want[:n]).abs().max()), float(err.max()), plain_ms, g
+
+
 def check_gradient_path(dev, presets, final, cam_main, k5_main) -> dict:
     """Phases 6-8: the recording forward (K6) against the render kernel
     and its plain version, the reverse walk (K8) against its plain
@@ -255,33 +335,13 @@ def check_gradient_path(dev, presets, final, cam_main, k5_main) -> dict:
     # --- phase 7: K8 against its plain version on the same K6 tapes ---
     n_pix, n_sph = cam_main.num_pixels, final.num_spheres
 
-    def k8_check(label, out, n, band, referee=False):
-        g = torch.randn(out.lengths.shape[0], 3,
-                        generator=torch.Generator().manual_seed(3)).to(dev)
-        got = wbk.mega_walk_backward_cuda(out.tape, out.lengths, g, n)
-        again = wbk.mega_walk_backward_cuda(out.tape, out.lengths, g, n)
-        want, plain_ms = cuda_timed(lambda: wbk.mega_walk_backward_plain(out.tape, out.lengths,
-                                                                         g, n))
-        err = col_err(got[:n], want[:n])
-        fmt = lambda e: [f"{x:.2e}" for x in e.tolist()]
-        log(f"[k8] {label}: per-column normalized err {fmt(err)}, run-to-run "
-            f"{float(col_err(again[:n], got[:n]).max()):.2e} normalized "
-            f"({float((got - again).abs().max()):.3e} abs), plain {plain_ms:.1f} ms")
-        if referee:  # both f32 walks against the same walk in float64
-            exact = wbk.mega_walk_backward_plain(out.tape, out.lengths, g, n,
-                                                 dtype=torch.float64)[:n]
-            log(f"[k8] {label}: vs the float64 walk, kernel {fmt(col_err(got[:n].double(), exact))}"
-                f", plain {fmt(col_err(want[:n].double(), exact))}")
-        require(bool(torch.isfinite(got).all()), f"{label}: K8 gradients not finite")
-        require(float(err.max()) < band, f"{label}: K8 vs plain {float(err.max()):.3e}")
-        return float((got[:n] - want[:n]).abs().max()), float(err.max()), plain_ms, g
-
     for label, scene, out in tapes:
-        k8_check(label, out, scene.num_spheres, K8_BAND)
+        k8_check(dev, label, out, scene.num_spheres, K8_BAND)
     del tapes
     # the main-path shape: the numbers the kernel line reports
-    k8_err, k8_norm_err, k8_plain_ms, g_main = k8_check("final 1200x675 depth 50", out_main,
-                                                        n_sph, K8_MAIN_BAND, referee=True)
+    k8_err, k8_norm_err, k8_plain_ms, g_main = k8_check(dev, "final 1200x675 depth 50",
+                                                        out_main, n_sph, K8_MAIN_BAND,
+                                                        referee=True)
 
     # --- phase 8: the training step at full width, through the entry points ---
     tracer = make_tape_camera_tracer(cam_main, BOUNCE_SEED, CAM_SEED, iota_pix=True)
@@ -360,6 +420,263 @@ def check_gradient_path(dev, presets, final, cam_main, k5_main) -> dict:
                        * 1e3, adam_losses=losses, tape_bytes_allocated=out_main.tape.numel() * 4,
                        tape_bytes_written=rows * 128, tape_rows=rows, k8_rows=k8_rows,
                        sweep=sweep, k8_max_norm_err=k8_norm_err),
+    }
+
+
+def walk_camera(presets, width: int):
+    """bench.py:317-322's walk camera (16:9, depth 8) at a given width."""
+    return presets.make_camera(aspect_ratio=16.0 / 9.0, image_width=width, samples_per_pixel=4,
+                               max_depth=8, vfov=55.0, lookfrom=(0.0, 20.0, 60.0),
+                               lookat=(0.0, 0.0, 0.0), vup=(0.0, 1.0, 0.0), defocus_angle=0.0,
+                               focus_dist=10.0)
+
+
+def k9_cost(stats, pack, n_rays: int, tape_rows: int = 0) -> dict:
+    """The FP32 operations and bytes a walk run with these counters needs:
+    one bound test per bounce and finite-bound chunk, and the admitted
+    chunks' slot tests at K5's counts; the pack read once, the colors (and
+    the tape rows and lengths) written once."""
+    bounces, admitted, tests, near = (int(x) for x in stats.tolist())
+    finite = int(torch.isfinite(pack.bounds[:pack.n_chunks, 3]).sum())
+    flops = (bounces * finite * FLOPS_PER_BOUND_TEST + tests * FLOPS_PER_TEST
+             + near * FLOPS_PER_NEAR_TEST)
+    nbytes = (pack.n_slots * (4 + 11) * 4 + pack.bounds.numel() * 4 + pack.n_chunks * 4
+              + 24 * 4 + n_rays * 12 + 32)
+    if tape_rows:
+        nbytes += tape_rows * 128 + n_rays * 4
+    live = int((pack.slot_to_orig >= 0).sum())
+    return dict(bounces=bounces, admitted=admitted, tests=tests, near=near,
+                finite_chunks=finite, live=live, dense_tests=bounces * live, flops=flops,
+                bytes=nbytes)
+
+
+def check_record(label, rec, rec_plain, render_colors, plain_ms) -> float:
+    """K9 record against its plain version: lengths, written tape rows,
+    colors and counters bit for bit, and its colors equal to K9 render's.
+    Returns the max abs error over the rows' float columns and the colors."""
+    gr, wr = written_rows(rec), written_rows(rec_plain)
+    require(torch.equal(rec.lengths, rec_plain.lengths), "K9 record lengths differ from plain")
+    err = max(float((gr[:, :26] - wr[:, :26]).abs().max()),
+              float((rec.colors - rec_plain.colors).abs().max()))
+    same = (torch.equal(gr.view(torch.int32), wr.view(torch.int32))
+            and torch.equal(rec.colors, rec_plain.colors))
+    log(f"[k9] record {label}: {gr.shape[0]:,} tape rows, max abs err {err:.3e}, rows and "
+        f"colors equal bit for bit {same}; record colors == render colors "
+        f"{torch.equal(rec.colors, render_colors)}; stats kernel {rec.stats.tolist()} plain "
+        f"{rec_plain.stats.tolist()}; plain {plain_ms:.1f} ms")
+    require(same, "K9 record differs from its plain version")
+    require(torch.equal(rec.stats.cpu(), rec_plain.stats.cpu()),
+            "K9 record counters differ from the plain count")
+    require(torch.equal(rec.colors, render_colors), "K9 record colors differ from K9 render's")
+    return err
+
+
+def check_walk_path(dev, presets, final, cam_main, k5_main, k5_bounces, k5_ms,
+                    peak: float) -> dict:
+    """Phases 10-14: the walk engine past 512 spheres.  K9 against K5 on
+    the main path's scene; on the 8,192-sphere field, K9 render and record
+    against their plain versions and K8 past 512 slots against the plain
+    walk, at a reduced image (with the float64 referee) and at the bench's
+    shape; the walk training step at the bench's shape, and
+    render_progressive routed to the walk."""
+    from distributed_raytracer_tpu_torch import image_loss, make_tape_camera_walk_tracer
+    from distributed_raytracer_tpu_torch.ops.camera import camera_scalar_row
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_render_kernel as mrk
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_bwd_kernel as wbk
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_kernel as mwk
+    from distributed_raytracer_tpu_torch.render.progressive import (
+        batch_seeds,
+        render_progressive,
+    )
+
+    def args_of(pack, cam):
+        p = pack.to(dev)
+        return (p.scene_pack, p.attrs, p.bounds, p.chunk_len,
+                camera_scalar_row(cam).to(dev).contiguous())
+
+    def sample_kw(cam, sample=0, bounce_seed=BOUNCE_SEED, cam_seed=CAM_SEED):
+        n = cam.num_pixels
+        return dict(bounce_seed=bounce_seed, cam_seed=cam_seed, rid_base=sample * n, pix0=0,
+                    n_valid=n, n_cap=n, w=cam.image_width, max_depth=cam.max_depth)
+
+    def per_ray(st, n):
+        return (f"{st['bounces'] / n:.4f} bounces, {st['admitted'] / n:.3f} chunks admitted, "
+                f"{st['tests'] / n:,.1f} slot tests ({st['dense_tests'] / n:,.1f} dense, "
+                f"{st['tests'] / max(st['dense_tests'], 1):.2%}), {st['near'] / n:.3f} with "
+                f"disc >= 0 per ray")
+
+    # --- phase 10: K9 against K5 on the main path (final 1200x675 depth 50) ---
+    pack_f = mwk.walk_pack_for(final, cam_main, chunk=WALK_CHUNK)
+    args_f, kw_f = args_of(pack_f, cam_main), sample_kw(cam_main)
+    k9_f, st_f = mwk.mega_walk_sample_cuda(*args_f, **kw_f)
+    torch.cuda.synchronize()
+    err = float((k9_f - k5_main).abs().max())
+    log(f"[k9] final 1200x675 depth 50 through walk_pack_for(chunk={WALK_CHUNK}): "
+        f"{pack_f.n_chunks} chunks, chunk_len {pack_f.chunk_len.tolist()}; K9 vs K5 max abs err "
+        f"{err:.3e}, bounces {int(st_f[0])} vs {k5_bounces}")
+    require(torch.equal(k9_f, k5_main), "K9 colors differ from K5's at the main path")
+    require(int(st_f[0]) == k5_bounces, "K9 and K5 bounce counts differ")
+    k9_f_ms = cuda_ms(lambda: mwk.mega_walk_sample_cuda(*args_f, **kw_f), 5)
+    cost_f = k9_cost(st_f, pack_f, cam_main.num_pixels)
+    log(f"[time] final 1200x675 depth 50: K9 {k9_f_ms:.3f} ms vs K5 {k5_ms:.3f} ms per sample; "
+        + per_ray(cost_f, cam_main.num_pixels))
+
+    # --- phase 11: K9 render and record against their plain versions (reduced image,
+    # whose tape phase 12's float64 referee can afford) ---
+    field = presets.random_sphere_field(8192, seed=5, extent=30.0)
+    cam_big, cam_small = walk_camera(presets, 1024), walk_camera(presets, 256)
+    pack = mwk.walk_pack_for(field, cam_big, chunk=WALK_CHUNK)
+    log(f"[k9] field of {field.num_spheres} spheres: {pack.n_chunks} chunks of {WALK_CHUNK}, "
+        f"{pack.n_slots} slots, {int(torch.isinf(pack.bounds[:pack.n_chunks, 3]).sum())} "
+        f"always swept")
+    args_s, kw_s = args_of(pack, cam_small), sample_kw(cam_small)
+    n_s = cam_small.num_pixels
+    got, got_st = mwk.mega_walk_sample_cuda(*args_s, **kw_s)
+    (want, want_st), plain_ms = cuda_timed(lambda: mwk.mega_walk_sample_plain(*args_s, **kw_s))
+    log(f"[k9] render {cam_small.image_width}x{cam_small.image_height} depth 8: max abs err "
+        f"{float((got - want).abs().max()):.3e}, equal bit for bit {torch.equal(got, want)}; "
+        f"stats kernel {got_st.tolist()} plain {want_st.tolist()} ({', '.join(mwk.STATS)}); "
+        f"plain {plain_ms:.1f} ms")
+    require(torch.equal(got, want), "K9 render differs from its plain version")
+    require(torch.equal(got_st.cpu(), want_st.cpu()), "K9 counters differ from the plain count")
+    fkw = dict(bounce_seed=BOUNCE_SEED, cam_seed=CAM_SEED, pix0=0, n_valid=n_s,
+               w=cam_small.image_width, max_depth=cam_small.max_depth)
+    rec = mwk.mega_walk_forward_camera_cuda(*args_s, **fkw)
+    rec_plain, plain_ms = cuda_timed(lambda: mwk.mega_walk_forward_camera_plain(*args_s, **fkw))
+    check_record(f"{cam_small.image_width}x{cam_small.image_height} depth 8", rec, rec_plain,
+                 got, plain_ms)
+    require(torch.equal(rec.stats, got_st), "K9 record and render counters differ")
+
+    # --- phase 12: K8 past 512 slots against the plain walk on that tape ---
+    k8_check(
+        dev, f"walk tape, {pack.n_slots} slots, {cam_small.image_width}x"
+        f"{cam_small.image_height} depth 8", rec, pack.n_slots, K8_BAND, referee=True)
+    del rec_plain, want, rec
+
+    # --- phase 13: the walk training step at the bench's shape, through the entry points ---
+    # the field padded with spheres of radius 0, which the pack leaves out
+    field_p = presets.random_sphere_field(8192, seed=5, extent=30.0, pad_to=8200)
+    tracer = make_tape_camera_walk_tracer(cam_big, BOUNCE_SEED, CAM_SEED, field_p,
+                                          chunk=WALK_CHUNK)
+    n_big = cam_big.num_pixels
+    ids = torch.arange(n_big)
+    target = torch.zeros(n_big, 3, device=dev)
+    p = {k: v.to(dev).clone().requires_grad_() for k, v in field_p.diff_params().items()}
+    scene_p = field_p.with_diff_params(p)
+    mwk.mega_walk_forward_camera_cuda.launches = 0
+    wbk.mega_walk_backward_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    colors = tracer(scene_p, ids)
+    loss = image_loss(colors, target)
+    loss.backward()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"mega_walk_record": mwk.mega_walk_forward_camera_cuda.launches,
+                "mega_walk_bwd": wbk.mega_walk_backward_cuda.launches}
+    log(f"[walk-train] field {field_p.num_spheres} entries ({field.num_spheres} spheres) "
+        f"{cam_big.image_width}x{cam_big.image_height} depth 8, {n_big:,} rays: loss "
+        f"{loss.item():.6f}, first step {wall * 1e3:.1f} ms wall, launches {launches}")
+    require(launches == {"mega_walk_record": 1, "mega_walk_bwd": 1},
+            f"the walk training step did not launch K9 and K8 once each: {launches}")
+    absent = field_p.radii.to(dev) <= 0
+    for k, v in p.items():
+        require(bool(torch.isfinite(v.grad).all()), f"walk {k} gradient not finite")
+        require(float(v.grad[absent].abs().max()) == 0.0, f"walk {k} gradient nonzero on an "
+                "absent sphere")
+    for k in ("centers", "albedo"):
+        require(float(p[k].grad[~absent].abs().max()) > 0.0, f"walk {k} gradient is zero")
+    log(f"[walk-train] grads finite; absent spheres ({int(absent.sum())}) zero; max |grad| "
+        + ", ".join(f"{k} {float(v.grad.abs().max()):.3e}" for k, v in p.items()))
+    args_b, kw_b = args_of(pack, cam_big), sample_kw(cam_big)
+    ren_b, _ = mwk.mega_walk_sample_cuda(*args_b, **kw_b)
+    torch.cuda.synchronize()
+    require(torch.equal(colors.detach(), ren_b), "walk tracer colors differ from the walk render")
+
+    def step():
+        for v in p.values():
+            v.grad = None
+        image_loss(tracer(scene_p, ids), target).backward()
+
+    step_ms = cuda_ms(step, 3)
+    log(f"[time] walk fwd+bwd step {step_ms:.3f} ms ({n_big / step_ms * 1e3:,.0f} rays/s)")
+    # K9 record and K8 at the step's shape against their plain versions
+    fkw_b = dict(bounce_seed=BOUNCE_SEED, cam_seed=CAM_SEED, pix0=0, n_valid=n_big,
+                 w=cam_big.image_width, max_depth=cam_big.max_depth)
+    rec_b = mwk.mega_walk_forward_camera_cuda(*args_b, **fkw_b)
+    rec_bp, record_plain_ms = cuda_timed(
+        lambda: mwk.mega_walk_forward_camera_plain(*args_b, **fkw_b))
+    record_err = check_record(f"{cam_big.image_width}x{cam_big.image_height} depth 8", rec_b,
+                              rec_bp, ren_b, record_plain_ms)
+    del rec_bp
+    record_ms = cuda_ms(lambda: mwk.mega_walk_forward_camera_cuda(*args_b, **fkw_b), 3)
+    k8w_err, k8w_norm, k8w_plain_ms, g_b = k8_check(
+        dev, f"walk tape, {pack.n_slots} slots, {cam_big.image_width}x{cam_big.image_height} "
+        "depth 8", rec_b, pack.n_slots, K8_MAIN_BAND, referee=True)
+    k8w_ms = cuda_ms(lambda: wbk.mega_walk_backward_cuda(rec_b.tape, rec_b.lengths, g_b,
+                                                         pack.n_slots), 3)
+    rows_b = int(rec_b.lengths.sum())
+    cost_rec = k9_cost(rec_b.stats, pack, n_big, tape_rows=rows_b)
+    k8w_flops, k8w_bytes, k8w_rows = walk_work(rec_b, pack.n_slots)
+    log(f"[time] walk step parts: K9 record {record_ms:.3f} ms, K8 ({pack.n_slots} slots) "
+        f"{k8w_ms:.3f} ms; tape {rows_b:,} rows ({rows_b / n_big:.4f} per ray), K8 reads "
+        f"{k8w_rows:,}; " + per_ray(cost_rec, n_big))
+
+    # --- phase 14: render_progressive routes the field to the walk (K9) ---
+    mwk.mega_walk_sample_cuda.launches = 0
+    mrk.mega_render_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = render_progressive(field, cam_big, seed=0, spp=4, batch=4, engine="mega")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    walk_launches = mwk.mega_walk_sample_cuda.launches
+    log(f"[walk-main] render_progressive field {cam_big.image_width}x{cam_big.image_height} "
+        f"depth 8 spp 4: {wall * 1e3 / 4:.2f} ms/sample wall, launches K9 {walk_launches}, "
+        f"K5 {mrk.mega_render_cuda.launches}")
+    require(walk_launches == 4 and mrk.mega_render_cuda.launches == 0,
+            "render_progressive past 512 spheres did not route to the walk")
+    want_sum = mwk.render_wavefront_sum_mega_walk(pack, cam_big, 4, *batch_seeds(0, 0),
+                                                  device=dev)
+    require(np.array_equal(state.raw_sum, want_sum.cpu().numpy()),
+            "render_progressive differs from render_wavefront_sum_mega_walk")
+    img = state.mean_image()
+    require(np.isfinite(img).all() and img.shape == (cam_big.image_height, cam_big.image_width, 3),
+            "walk image is not finite")
+    log("[walk-main] equals render_wavefront_sum_mega_walk bit for bit; top-center pixel "
+        f"{img[0, cam_big.image_width // 2].tolist()}")
+    kw_e = sample_kw(cam_big, bounce_seed=batch_seeds(0, 0)[0], cam_seed=batch_seeds(0, 0)[1])
+    got_e, st_e = mwk.mega_walk_sample_cuda(*args_b, **kw_e)
+    (want_e, want_st_e), render_plain_ms = cuda_timed(
+        lambda: mwk.mega_walk_sample_plain(*args_b, **kw_e))
+    render_err = float((got_e - want_e).abs().max())
+    log(f"[k9] render {cam_big.image_width}x{cam_big.image_height} depth 8: max abs err "
+        f"{render_err:.3e}, equal bit for bit {torch.equal(got_e, want_e)}; stats kernel "
+        f"{st_e.tolist()} plain {want_st_e.tolist()}; plain {render_plain_ms:.1f} ms")
+    require(torch.equal(got_e, want_e), "K9 render differs from its plain version")
+    require(torch.equal(st_e.cpu(), want_st_e.cpu()), "K9 counters differ from the plain count")
+    del want_e
+    render_ms = cuda_ms(lambda: mwk.mega_walk_sample_cuda(*args_b, **kw_e), 5)
+    cost_ren = k9_cost(st_e, pack, n_big)
+    log(f"[time] walk render {render_ms:.3f} ms per sample ({n_big / render_ms * 1e3:,.0f} "
+        f"rays/s), bound {cost_ren['flops'] / peak * 1e3:.4f} ms ({cost_ren['flops']:,} FP32 "
+        f"operations); " + per_ray(cost_ren, n_big))
+
+    return {
+        "mega_walk": dict(launches=walk_launches, max_abs_err=render_err, ms=render_ms,
+                          plain_ms=render_plain_ms, flops=cost_ren["flops"],
+                          bytes=cost_ren["bytes"]),
+        "mega_walk_record": dict(launches=launches["mega_walk_record"], max_abs_err=record_err,
+                                 ms=record_ms, plain_ms=record_plain_ms,
+                                 flops=cost_rec["flops"], bytes=cost_rec["bytes"]),
+        "mega_walk_bwd_global": dict(launches=launches["mega_walk_bwd"], max_abs_err=k8w_err,
+                                     ms=k8w_ms, plain_ms=k8w_plain_ms, flops=k8w_flops,
+                                     bytes=k8w_bytes, max_norm_err=k8w_norm),
+        "record": dict(k9_final_ms=k9_f_ms, k5_final_ms=k5_ms, final_cost=cost_f,
+                       render_cost=cost_ren, record_cost=cost_rec, step_ms=step_ms,
+                       rays_per_s=n_big / step_ms * 1e3, k8_walk_ms=k8w_ms,
+                       k8_walk_norm_err=k8w_norm, progressive_ms_per_sample=wall * 1e3 / 4,
+                       tape_rows=rows_b, k8_rows=k8w_rows),
     }
 
 
@@ -486,7 +803,9 @@ def main() -> int:
 
     # --- phases 6-8: the scene-gradient path (K6, K8) ---
     grad = check_gradient_path(dev, presets, final, cam_main, k)
+    # --- phases 10-14: the walk engine past 512 spheres (K9, K8 past 512) ---
     peak = fp32_peak_flops()
+    walk = check_walk_path(dev, presets, final, cam_main, k, kb, ms, peak)
 
     # --- phase 9: the kernel line, then the device line last ---
     # K5 at the main-path shape traced the rays K6 recorded (sample 0, the
@@ -501,16 +820,17 @@ def main() -> int:
         bound_by="operations" if ops_s >= bytes_s else "bytes", library_ms=None,
         library_note=NO_LIBRARY["mega_render"],
     )]
-    for name in ("mega_forward", "mega_walk_bwd"):
-        g = grad[name]
+    for name, g in [(n, grad[n]) for n in ("mega_forward", "mega_walk_bwd")] + [
+            (n, walk[n]) for n in ("mega_walk", "mega_walk_record", "mega_walk_bwd_global")]:
+        src = ROW_SOURCE[name]
         ops_s = g["flops"] / peak
         bytes_s = g["bytes"] / HBM_BYTES_PER_S
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE.format(name), replaces=REPLACES[name],
+            name=name, route="cuda", source=SOURCE.format(src), replaces=REPLACES[src],
             launches=g["launches"], max_abs_err=g["max_abs_err"], ms=g["ms"],
             plain_ms=g["plain_ms"], bound_ms=max(ops_s, bytes_s) * 1e3,
             bound_by="operations" if ops_s >= bytes_s else "bytes", library_ms=None,
-            library_note=NO_LIBRARY[name]))
+            library_note=NO_LIBRARY[src]))
         if "max_norm_err" in g:  # g_pm's columns span orders of magnitude
             kernels[-1]["max_norm_err"] = g["max_norm_err"]
     for kd in kernels:
@@ -520,6 +840,7 @@ def main() -> int:
     if args.record:
         record = dict(card=smi, kernels=kernels, mean_bounces_per_ray=kb / n_pix,
                       main_path_ms_per_sample=wall * 1e3 / 4, gradient_path=grad["record"],
+                      walk_path=walk["record"],
                       seconds=time.time() - t_start)
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

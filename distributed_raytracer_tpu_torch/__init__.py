@@ -9,7 +9,10 @@ points run on the CUDA card unless the caller asks for the CPU.
 """
 
 from distributed_raytracer_tpu_torch.grad.diff_render import image_loss
-from distributed_raytracer_tpu_torch.grad.tapegrad import make_tape_camera_tracer
+from distributed_raytracer_tpu_torch.grad.tapegrad import (
+    make_tape_camera_tracer,
+    make_tape_camera_walk_tracer,
+)
 from distributed_raytracer_tpu_torch.models.scene import (
     ABSORB,
     DIELECTRIC,
@@ -20,6 +23,9 @@ from distributed_raytracer_tpu_torch.models.scene import (
     SceneBuilder,
 )
 from distributed_raytracer_tpu_torch.ops.camera import Camera, make_camera
+from distributed_raytracer_tpu_torch.ops.kernels.mega_walk_kernel import (
+    render_wavefront_sum_mega_walk,
+)
 
 __all__ = [
     "Scene",
@@ -27,6 +33,8 @@ __all__ = [
     "Camera",
     "make_camera",
     "make_tape_camera_tracer",
+    "make_tape_camera_walk_tracer",
+    "render_wavefront_sum_mega_walk",
     "image_loss",
     "LAMBERTIAN",
     "METAL",

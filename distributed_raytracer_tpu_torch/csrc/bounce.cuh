@@ -15,8 +15,8 @@
 #define DR_NEAR_ZERO 1e-6f
 #define DR_TWO_PI 6.2831853f
 
-// winner-attribute rows held per sphere in shared memory (ops/kernels/
-// bounce.py A_RR..A_MT; the centers come from the sweep columns)
+// winner-attribute rows held per sphere (ops/kernels/bounce.py
+// A_RR..A_MT; the centers come from the sweep columns)
 #define ATT_RR 0
 #define ATT_AR 1
 #define ATT_AG 2
@@ -26,16 +26,17 @@
 #define ATT_MT 6
 #define ATT_ROWS 7
 
-// Closest hit over n spheres (cx, cy, cz, r2), ascending index with a
-// strict <, so the first minimum wins as in jnp.argmin.  Returns t (DR_BIG
-// on a miss) and the winner's index in *idx (0 on a miss).  r2 = -1 marks
-// a sphere that never hits.
-__device__ __forceinline__ float sweep_winner(const float4* sph, int n, float ox, float oy,
-                                              float oz, float dx, float dy, float dz,
-                                              float a, float inv_a, int* idx) {
-  float best = DR_BIG;
-  int bi = 0;
-  for (int j = 0; j < n; ++j) {
+// Sweeps spheres j0 .. j1-1 (cx, cy, cz, r2) into the running closest hit
+// (best, bi), ascending index with a strict <, so the first minimum wins
+// as in jnp.argmin, and a later range wins only with a smaller t (the
+// walk's chunk merge).  r2 = -1 marks a sphere that never hits.  COUNT
+// also adds the tests whose discriminant is not negative to *n_near.
+template <bool COUNT = false>
+__device__ __forceinline__ void sweep_range(const float4* sph, int j0, int j1, float ox,
+                                            float oy, float oz, float dx, float dy, float dz,
+                                            float a, float inv_a, float& best, int& bi,
+                                            unsigned long long* n_near = nullptr) {
+  for (int j = j0; j < j1; ++j) {
     const float4 s = sph[j];
     const float ocx = s.x - ox;
     const float ocy = s.y - oy;
@@ -44,6 +45,7 @@ __device__ __forceinline__ float sweep_winner(const float4* sph, int n, float ox
     const float c_q = ocx * ocx + ocy * ocy + ocz * ocz - s.w;
     const float disc = h * h - a * c_q;
     if (disc >= 0.0f) {
+      if (COUNT) ++*n_near;
       const float sqrtd = sqrtf(disc);
       const float rn = (h - sqrtd) * inv_a;
       const float rf = (h + sqrtd) * inv_a;
@@ -54,6 +56,16 @@ __device__ __forceinline__ float sweep_winner(const float4* sph, int n, float ox
       }
     }
   }
+}
+
+// Closest hit over n spheres: returns t (DR_BIG on a miss) and the
+// winner's index in *idx (0 on a miss).
+__device__ __forceinline__ float sweep_winner(const float4* sph, int n, float ox, float oy,
+                                              float oz, float dx, float dy, float dz,
+                                              float a, float inv_a, int* idx) {
+  float best = DR_BIG;
+  int bi = 0;
+  sweep_range(sph, 0, n, ox, oy, oz, dx, dy, dz, a, inv_a, best, bi);
   *idx = bi;
   return best;
 }
@@ -75,22 +87,23 @@ __device__ __forceinline__ void unit_draw(uint32_t rid, uint32_t seed, float ru[
   ru[2] = g3 * gn;
 }
 
-// Shades one ray against the winner (index bi, attributes att[row * stride
-// + bi]).  On return either the ray finished (true; its terminal color in
+// Shades one ray against the winner (index bi; its center and radius^2
+// sc.sphere(bi), its attributes sc.attr(ATT_*, bi), trace.cuh's scene
+// accessors).  On return either the ray finished (true; its terminal color in
 // co: sky on a miss, black when absorbed) or it scattered (false; o and d
 // hold the next ray, at the attenuation of this bounce).
 //
-// RECORD (the recording forward, csrc/mega_forward.cu) also returns the
+// RECORD (the recording forwards, csrc/mega_forward.cu and the record
+// instantiation of csrc/mega_walk.cu) also returns the
 // bounce's four draws in rec (rux, ruy, ruz, u_choice), computed for every
 // ray whatever its material, as the JAX vector code computes them for
 // every lane, so the tape can be held against JAX's.  The draws are pure
 // functions of (rid, seed), so both instantiations compute the same
 // values; RECORD = false is the mega render kernel's shade unchanged.
-template <bool RECORD = false>
+template <bool RECORD, class Scene>
 __device__ __forceinline__ bool shade(float o[3], float d[3], float a, float t,
-                                      const float4* sph, const float* att, int stride,
-                                      int bi, uint32_t rid, uint32_t seed, float at[3],
-                                      float co[3], float rec[4] = nullptr) {
+                                      const Scene& sc, int bi, uint32_t rid, uint32_t seed,
+                                      float at[3], float co[3], float rec[4] = nullptr) {
   if (RECORD) {
     unit_draw(rid, seed, rec);
     rec[3] = hash_u01(rid, seed, 4u);
@@ -104,9 +117,9 @@ __device__ __forceinline__ bool shade(float o[3], float d[3], float a, float t,
     co[2] = (1.0f - sky_a) + sky_a * 1.0f;
     return true;
   }
-  const float4 s = sph[bi];
-  const float wrr = att[ATT_RR * stride + bi];
-  const float mt = att[ATT_MT * stride + bi];
+  const float4 s = sc.sphere(bi);
+  const float wrr = sc.attr(ATT_RR, bi);
+  const float mt = sc.attr(ATT_MT, bi);
   if (mt == 3.0f) {  // ABSORB
     co[0] = co[1] = co[2] = 0.0f;
     return true;
@@ -130,7 +143,7 @@ __device__ __forceinline__ bool shade(float o[3], float d[3], float a, float t,
     return false;
   }
   if (mt == 2.0f) {  // DIELECTRIC
-    const float wio = att[ATT_IO * stride + bi];
+    const float wio = sc.attr(ATT_IO, bi);
     const float u_choice = RECORD ? rec[3] : hash_u01(rid, seed, 4u);
     const float ior = wio > 0.0f ? wio : 1.0f;
     const float ri = front ? 1.0f / ior : ior;
@@ -164,9 +177,9 @@ __device__ __forceinline__ bool shade(float o[3], float d[3], float a, float t,
     return false;
   }
 
-  const float war = att[ATT_AR * stride + bi];
-  const float wag = att[ATT_AG * stride + bi];
-  const float wab = att[ATT_AB * stride + bi];
+  const float war = sc.attr(ATT_AR, bi);
+  const float wag = sc.attr(ATT_AG, bi);
+  const float wab = sc.attr(ATT_AB, bi);
   float ndx = d[0], ndy = d[1], ndz = d[2];
   if (mt == 0.0f || mt == 1.0f) {
     float ru[3];
@@ -188,7 +201,7 @@ __device__ __forceinline__ bool shade(float o[3], float d[3], float a, float t,
         ndz = nz;
       }
     } else {  // METAL: reflect about the oriented normal, then fuzz
-      const float wfz = att[ATT_FZ * stride + bi];
+      const float wfz = sc.attr(ATT_FZ, bi);
       const float rx = d[0] - 2.0f * d_dot_n * fs * nx;
       const float ry = d[1] - 2.0f * d_dot_n * fs * ny;
       const float rz = d[2] - 2.0f * d_dot_n * fs * nz;

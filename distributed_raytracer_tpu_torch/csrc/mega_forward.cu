@@ -58,9 +58,9 @@ mega_forward_kernel(const float* __restrict__ cols,   // [4, n]: cx, cy, cz, r2
     const uint32_t pix = pixel_ids ? (uint32_t)pixel_ids[i] : (uint32_t)(pix0 + i);
     const uint32_t rid = pix;  // the tracer passes no rid base
     float col[3];
-    const int rows = trace_ray<true>(s_sph, s_att, n, s_cam, pix, rid, bounce_seed, cam_seed,
-                                     (uint32_t)w, max_depth, col,
-                                     tape + (size_t)i * TAPE_COLS,
+    ResidentScene sc{s_sph, s_att, n};
+    const int rows = trace_ray<true>(sc, s_cam, pix, rid, bounce_seed, cam_seed, (uint32_t)w,
+                                     max_depth, col, tape + (size_t)i * TAPE_COLS,
                                      (size_t)n_rays * TAPE_COLS, i);
     my_bounces = rows;
     lengths[i] = rows;
@@ -68,7 +68,7 @@ mega_forward_kernel(const float* __restrict__ cols,   // [4, n]: cx, cy, cz, r2
     colors[3 * i + 1] = col[1];
     colors[3 * i + 2] = col[2];
   }
-  add_bounces(my_bounces, bounces);
+  add_count(my_bounces, bounces);
 }
 
 extern "C" int mega_forward_launch(const float* cols, const float* attrs, int n, const float* cam,

@@ -56,14 +56,15 @@ mega_render_kernel(const float* __restrict__ cols,   // [4, n]: cx, cy, cz, r2
     if (local < n_valid) {
       const uint32_t pix = (uint32_t)(pix0 + local);
       const uint32_t rid = rid_base + pix;  // global ray id, wraps as int32 does
-      my_bounces = trace_ray<false>(s_sph, s_att, n, s_cam, pix, rid, bounce_seed, cam_seed,
-                                    (uint32_t)w, max_depth, col);
+      ResidentScene sc{s_sph, s_att, n};
+      my_bounces = trace_ray<false>(sc, s_cam, pix, rid, bounce_seed, cam_seed, (uint32_t)w,
+                                    max_depth, col);
     }
     colors[3 * local + 0] = col[0];
     colors[3 * local + 1] = col[1];
     colors[3 * local + 2] = col[2];
   }
-  add_bounces(my_bounces, bounces);
+  add_count(my_bounces, bounces);
 }
 
 extern "C" int mega_render_launch(const float* cols, const float* attrs, int n,

@@ -19,12 +19,19 @@
 // of the depth-major tape (layout in tape.cuh).  The VJP is forward
 // mode (local_f_vjp: one dual-number pass per differentiable input of
 // the row, skipping inputs that cannot move the row's outputs).  Each
-// block sums the sphere cotangents in shared memory, [n + 1, 9] f32
-// (18.5 KB at 512 spheres), with shared atomicAdd, then adds its nonzero
-// entries to the global g_pm with one atomicAdd each.  Sums are taken in
-// an order that changes from run to run.  A row that hit nothing has
-// parameter cotangents that are exactly zero (its outputs do not depend
-// on the winner's parameters), so the no-hit bin n stays zero.  A ray
+// block sums the cotangents of the first 513 bins (every sphere's and
+// the no-hit bin up to 512 spheres: [n + 1, 9] f32, 18.5 KB) in shared
+// memory with shared atomicAdd, then adds its nonzero entries to the
+// global g_pm with one atomicAdd each.  Past 512 (the walk tracer's
+// slots, 8,448 at the bench shape: 304 KB, more than a block's 227 KB) a
+// cotangent of a later bin goes straight to g_pm with a global
+// atomicAdd.  The walk's first slots are the always-swept ground and the
+// chunks nearest the camera, which most rows hit, so most sums stay in
+// shared memory (PERF.md section 6 has the times, from chip_smoke.py).
+// Sums are taken in an order that changes from run to run.  A row that
+// hit nothing has parameter cotangents that are exactly zero (its
+// outputs do not depend on the winner's parameters), so the no-hit bin n
+// stays zero.  A ray
 // whose cotangents are all zero is skipped from there on: a ray that
 // reached max_depth without finishing costs one flag read, an absorbed
 // ray one row.
@@ -58,7 +65,8 @@ mega_walk_bwd_kernel(const float* __restrict__ tape,      // [max_depth, n_rays,
                      const float* __restrict__ g_color,   // [n_rays, 3]
                      int n_rays, int n, float* __restrict__ g_pm) {  // [n + 1, 9], zeroed
   __shared__ float s_acc[(MAX_SPHERES + 1) * NPM];
-  for (int e = threadIdx.x; e < (n + 1) * NPM; e += blockDim.x) s_acc[e] = 0.0f;
+  const int n_sh = min(n + 1, MAX_SPHERES + 1);  // the bins held in shared memory
+  for (int e = threadIdx.x; e < n_sh * NPM; e += blockDim.x) s_acc[e] = 0.0f;
   __syncthreads();
 
   const size_t depth_stride = (size_t)n_rays * TAPE_COLS;
@@ -96,7 +104,12 @@ mega_walk_bwd_kernel(const float* __restrict__ tape,      // [max_depth, n_rays,
       if (hit) {
 #pragma unroll
         for (int p = 0; p < NPM; ++p) {
-          if (cin[9 + p] != 0.0f) atomicAdd(&s_acc[idx * NPM + p], cin[9 + p]);
+          if (cin[9 + p] == 0.0f) continue;
+          if (idx < n_sh) {
+            atomicAdd(&s_acc[idx * NPM + p], cin[9 + p]);
+          } else {
+            atomicAdd(&g_pm[idx * NPM + p], cin[9 + p]);
+          }
         }
       }
       bool any = false;
@@ -110,14 +123,14 @@ mega_walk_bwd_kernel(const float* __restrict__ tape,      // [max_depth, n_rays,
     }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < (n + 1) * NPM; e += blockDim.x) {
+  for (int e = threadIdx.x; e < n_sh * NPM; e += blockDim.x) {
     if (s_acc[e] != 0.0f) atomicAdd(&g_pm[e], s_acc[e]);
   }
 }
 
 extern "C" int mega_walk_bwd_launch(const float* tape, const int* lengths, const float* g_color,
                                     int n_rays, int n, int blocks, float* g_pm, void* stream) {
-  if (n < 1 || n > MAX_SPHERES || n_rays < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n_rays < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
   mega_walk_bwd_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(tape, lengths, g_color,
                                                                      n_rays, n, g_pm);
   return (int)cudaGetLastError();

@@ -1,11 +1,22 @@
 // One camera ray traced to its end: the bounce loop of the mega render
-// kernel (csrc/mega_render.cu) and of the recording forward
-// (csrc/mega_forward.cu), written once.
+// kernel (csrc/mega_render.cu), the recording forward (csrc/mega_forward.cu)
+// and the walk kernel (csrc/mega_walk.cu), written once.
 //
-// trace_ray<false> is the render kernel's loop; trace_ray<true> runs the
-// same loop with the recording shade<true> (bounce.cuh) and also writes
-// one tape row per bounce (tape.cuh).  Both compute the same values in
-// the same order, so at equal seeds their colors are equal bit for bit.
+// trace_ray<RECORD, Scene>: RECORD = false is the render kernels' loop;
+// RECORD = true runs the same loop with the recording shade<true>
+// (bounce.cuh) and also writes one tape row per bounce (tape.cuh).  Both
+// compute the same values in the same order, so at equal seeds their
+// colors are equal bit for bit.  The Scene accessor says where the scene
+// lives and how a bounce finds its closest hit:
+//
+//   ResidentScene (K5, K6): the whole scene staged in shared memory, every
+//     sphere swept;
+//   WalkScene (K9): the scene in global memory (L2-resident) as visit-
+//     ordered chunks of slots, a chunk swept only when the ray can still
+//     hit its bounding sphere closer than its best t so far.
+//
+// Both give sphere(j) (cx, cy, cz, r2), attr(ATT_*, j) and sweep(...),
+// which returns the closest t (DR_BIG on a miss) and its index.
 #pragma once
 #include <cstdint>
 
@@ -31,31 +42,104 @@ __device__ __forceinline__ void stage_scene(const float* __restrict__ cols,
   __syncthreads();
 }
 
-// Adds each thread's bounce count to *total, one atomic per warp.  Every
-// thread of the block calls it.
-__device__ __forceinline__ void add_bounces(unsigned long long mine,
-                                            unsigned long long* total) {
+// Adds each thread's count to *total, one atomic per warp.  Every thread
+// of the block calls it.
+__device__ __forceinline__ void add_count(unsigned long long mine, unsigned long long* total) {
   for (int off = 16; off > 0; off >>= 1) mine += __shfl_down_sync(0xFFFFFFFFu, mine, off);
   if ((threadIdx.x & 31) == 0 && mine) atomicAdd(total, mine);
 }
 
+// The scene staged by stage_scene: n spheres, all swept.
+struct ResidentScene {
+  const float4* sph;  // [MAX_SPHERES] shared
+  const float* att;   // [ATT_ROWS, MAX_SPHERES] shared
+  int n;
+
+  __device__ __forceinline__ float4 sphere(int j) const { return sph[j]; }
+  __device__ __forceinline__ float attr(int row, int j) const {
+    return att[row * MAX_SPHERES + j];
+  }
+  __device__ __forceinline__ float sweep(float ox, float oy, float oz, float dx, float dy,
+                                         float dz, float a, float inv_a, int* idx) {
+    return sweep_winner(sph, n, ox, oy, oz, dx, dy, dz, a, inv_a, idx);
+  }
+};
+
+// The chunk test of the walk (mega_walk_kernel.py:365-391 in the JAX
+// package): can the ray (o, d; a = |d|^2) hit the bounding sphere b (bx,
+// by, bz, r2) at some t > T_MIN nearer than best?  Conservative: a sphere
+// inside the bound that the ray hits at t < best passes it.  An infinite
+// r2 (the always-swept big chunk) admits without the arithmetic, whose
+// inf - inf would not.
+__device__ __forceinline__ bool chunk_admits(float4 b, float ox, float oy, float oz, float dx,
+                                             float dy, float dz, float a, float inv_a,
+                                             float best) {
+  if (isinf(b.w)) return b.w > 0.0f;
+  const float obx = b.x - ox;
+  const float oby = b.y - oy;
+  const float obz = b.z - oz;
+  const float hb = dx * obx + dy * oby + dz * obz;
+  const float cb = obx * obx + oby * oby + obz * obz - b.w;
+  const float discb = hb * hb - a * cb;
+  if (!(discb >= 0.0f)) return false;
+  const float sq = sqrtf(discb);
+  const float nearb = (hb - sq) * inv_a;
+  const float farb = (hb + sq) * inv_a;
+  return farb > DR_T_MIN && nearb < best;
+}
+
+// The walk pack in global memory: n_chunks chunks of `chunk` slots in
+// visit order (always-swept chunks first, then front to back from the
+// camera).  Chunk c sweeps its first chunk_len[c] slots (the rest are
+// padding, r2 = -1, which never hit) and merges them with a strict <, so
+// the winner is the dense argmin over the visit-ordered slots, ties
+// included.  Counts, per thread, the chunks admitted, the slot tests they
+// run and those tests whose discriminant is not negative.
+struct WalkScene {
+  const float4* sph;      // [n_slots] cx cy cz r2
+  const float* att;       // [ATT_ROWS, n_slots]
+  const float4* bounds;   // [n_chunks] bx by bz r2
+  const int* chunk_len;   // [n_chunks]
+  int n_slots, chunk, n_chunks;
+  unsigned long long admitted, tests, near_tests;
+
+  __device__ __forceinline__ float4 sphere(int j) const { return sph[j]; }
+  __device__ __forceinline__ float attr(int row, int j) const { return att[row * n_slots + j]; }
+  __device__ __forceinline__ float sweep(float ox, float oy, float oz, float dx, float dy,
+                                         float dz, float a, float inv_a, int* idx) {
+    float best = DR_BIG;
+    int bi = 0;
+    for (int c = 0; c < n_chunks; ++c) {
+      if (!chunk_admits(bounds[c], ox, oy, oz, dx, dy, dz, a, inv_a, best)) continue;
+      const int j0 = c * chunk;
+      const int len = chunk_len[c];
+      ++admitted;
+      tests += (unsigned long long)len;
+      sweep_range<true>(sph, j0, j0 + len, ox, oy, oz, dx, dy, dz, a, inv_a, best, bi,
+                        &near_tests);
+    }
+    *idx = bi;
+    return best;
+  }
+};
+
 // Traces the camera ray of pixel pix (draws keyed by rid) through sweep +
-// shade until it finishes or reaches max_depth, against the staged scene
-// (sph, att, cam in shared memory).  col gets its color: atten x the
-// terminal color, black when it was absorbed or ran out of depth.
-// Returns the bounces it ran.
+// shade until it finishes or reaches max_depth.  col gets its color:
+// atten x the terminal color, black when it was absorbed or ran out of
+// depth.  Returns the bounces it ran.
 //
 // RECORD: bounce k also writes tape row tape[k * depth_stride] (tape
 // points at the ray's depth-0 row): the pre-bounce o, d and atten, the
 // four draws, the contribution (the color on the finishing row, else 0),
-// the winner's parameters (zero on a miss), the winner index, the ray
-// index `ray` and the flags.  So the bounces run are the rows written.
-template <bool RECORD>
-__device__ __forceinline__ int trace_ray(const float4* sph, const float* att, int n,
-                                         const float* cam, uint32_t pix, uint32_t rid,
-                                         uint32_t bounce_seed, uint32_t cam_seed, uint32_t w,
-                                         int max_depth, float col[3], float* tape = nullptr,
-                                         size_t depth_stride = 0, int ray = 0) {
+// the winner's parameters (zero on a miss), the winner's index in the
+// scene (the slot, for the walk), the ray index `ray` and the flags.  So
+// the bounces run are the rows written.
+template <bool RECORD, class Scene>
+__device__ __forceinline__ int trace_ray(Scene& sc, const float* cam, uint32_t pix,
+                                         uint32_t rid, uint32_t bounce_seed, uint32_t cam_seed,
+                                         uint32_t w, int max_depth, float col[3],
+                                         float* tape = nullptr, size_t depth_stride = 0,
+                                         int ray = 0) {
   float o[3], d[3];
   camera_ray(cam, pix, rid, cam_seed, w, o, d);
   float atten[3] = {1.0f, 1.0f, 1.0f};
@@ -74,11 +158,10 @@ __device__ __forceinline__ int trace_ray(const float4* sph, const float* att, in
     const float a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
     const float inv_a = 1.0f / a;
     int bi;
-    const float t = sweep_winner(sph, n, o[0], o[1], o[2], d[0], d[1], d[2], a, inv_a, &bi);
+    const float t = sc.sweep(o[0], o[1], o[2], d[0], d[1], d[2], a, inv_a, &bi);
     const uint32_t seed = bounce_seed + (uint32_t)depth * 65537u;
     float at[3], co[3], rec[4];
-    const bool fin =
-        shade<RECORD>(o, d, a, t, sph, att, MAX_SPHERES, bi, rid, seed, at, co, rec);
+    const bool fin = shade<RECORD>(o, d, a, t, sc, bi, rid, seed, at, co, rec);
     if (RECORD) {
       const bool hit = t < DR_BIG * 0.5f;
 #pragma unroll
@@ -87,17 +170,17 @@ __device__ __forceinline__ int trace_ray(const float4* sph, const float* att, in
         row[T_CO + k] = fin ? atten[k] * co[k] : 0.0f;
       }
       row[T_U] = rec[3];
-      const float4 s = hit ? sph[bi] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float4 s = hit ? sc.sphere(bi) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       row[T_CW + 0] = s.x;
       row[T_CW + 1] = s.y;
       row[T_CW + 2] = s.z;
-      row[T_RW] = hit ? att[ATT_RR * MAX_SPHERES + bi] : 0.0f;
-      row[T_AW + 0] = hit ? att[ATT_AR * MAX_SPHERES + bi] : 0.0f;
-      row[T_AW + 1] = hit ? att[ATT_AG * MAX_SPHERES + bi] : 0.0f;
-      row[T_AW + 2] = hit ? att[ATT_AB * MAX_SPHERES + bi] : 0.0f;
-      row[T_FW] = hit ? att[ATT_FZ * MAX_SPHERES + bi] : 0.0f;
-      row[T_IW] = hit ? att[ATT_IO * MAX_SPHERES + bi] : 0.0f;
-      row[T_MT] = hit ? att[ATT_MT * MAX_SPHERES + bi] : 0.0f;
+      row[T_RW] = hit ? sc.attr(ATT_RR, bi) : 0.0f;
+      row[T_AW + 0] = hit ? sc.attr(ATT_AR, bi) : 0.0f;
+      row[T_AW + 1] = hit ? sc.attr(ATT_AG, bi) : 0.0f;
+      row[T_AW + 2] = hit ? sc.attr(ATT_AB, bi) : 0.0f;
+      row[T_FW] = hit ? sc.attr(ATT_FZ, bi) : 0.0f;
+      row[T_IW] = hit ? sc.attr(ATT_IO, bi) : 0.0f;
+      row[T_MT] = hit ? sc.attr(ATT_MT, bi) : 0.0f;
       row[T_IDX] = __int_as_float(hit ? bi : 0);
       row[T_RAY] = __int_as_float(ray);
       row[T_FLG] = __int_as_float((hit ? F_HIT : 0) | F_ACT | (depth == 0 ? F_TAKE : 0) |

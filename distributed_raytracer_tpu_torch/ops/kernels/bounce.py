@@ -47,11 +47,10 @@ def scene_sweep_arrays(scene: Scene) -> Tuple[torch.Tensor, torch.Tensor]:
     return cols.contiguous(), attrs.contiguous()
 
 
-def sweep_winner(ox, oy, oz, dx, dy, dz, a, inv_a, cols, attrs):
-    """Closest hit of each ray over all spheres, in the kernel's oc-form
-    arithmetic: near-then-far roots against T_MIN, first minimum wins.
-    Returns (t_c [R], w [11, R]): the winner's t (BIG on a miss) and its
-    attributes (zeros on a miss, as the JAX kernel's one-hot select)."""
+def sweep_t(ox, oy, oz, dx, dy, dz, a, inv_a, cols):
+    """Each ray's hit t on each sphere, [R, N] (BIG where it misses), in
+    the kernel's oc-form arithmetic (near-then-far roots against T_MIN),
+    and the [R, N] mask of the tests whose discriminant is not negative."""
     cx, cy, cz, r2 = (cols[k][None, :] for k in range(4))
     ocx = cx - ox[:, None]
     ocy = cy - oy[:, None]
@@ -65,6 +64,20 @@ def sweep_winner(ox, oy, oz, dx, dy, dz, a, inv_a, cols, attrs):
     rn = (h - sqrtd) * inv
     rf = (h + sqrtd) * inv
     t = torch.where(ok & (rn > T_MIN), rn, torch.where(ok & (rf > T_MIN), rf, BIG))
+    return t, ok
+
+
+def sweep_winner(ox, oy, oz, dx, dy, dz, a, inv_a, cols, attrs):
+    """Closest hit of each ray over all spheres (sweep_t), first minimum
+    wins.  Returns (t_c [R], w [11, R]): the winner's t (BIG on a miss)
+    and its attributes (zeros on a miss, as the JAX kernel's one-hot
+    select)."""
+    t, _ = sweep_t(ox, oy, oz, dx, dy, dz, a, inv_a, cols)
+    return winner_of(t, attrs)
+
+
+def winner_of(t, attrs):
+    """(t_c [R], w [11, R]) from the [R, N] hit ts: the first minimum."""
     t_c, idx = torch.min(t, dim=1)  # first index of the minimum
     hit = t_c < BIG * 0.5
     w = torch.where(hit[None, :], attrs[:, idx], 0.0)

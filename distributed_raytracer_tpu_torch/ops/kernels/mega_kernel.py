@@ -24,7 +24,7 @@ truncated, and there is no clean flag and no NaN poisoning.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -59,9 +59,10 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
 
 def mega_forward_camera_plain(cols, attrs, cam_row, pixel_ids: Optional[torch.Tensor], *,
                               bounce_seed: int, cam_seed: int, pix0: int, n_valid: int, w: int,
-                              max_depth: int) -> MegaOut:
+                              max_depth: int, sweep: Optional[Callable] = None) -> MegaOut:
     """Plain PyTorch version of the recording forward on any device.
-    pixel_ids [n_valid] int, or None for pix0 + arange(n_valid)."""
+    pixel_ids [n_valid] int, or None for pix0 + arange(n_valid); sweep:
+    trace_plain's."""
     dev = cols.device
     if pixel_ids is None:
         pix = pix0 + torch.arange(n_valid, dtype=torch.int64, device=dev)
@@ -85,7 +86,7 @@ def mega_forward_camera_plain(cols, attrs, cam_row, pixel_ids: Optional[torch.Te
 
     bounces = trace_plain(cols, attrs, cam_row, pix, pix & 0xFFFFFFFF, bounce_seed=bounce_seed,
                           cam_seed=cam_seed, w=w, max_depth=max_depth, colors=colors,
-                          record=record)
+                          record=record, sweep=sweep)
     return MegaOut(tape, lengths, colors, torch.tensor([bounces], dtype=torch.int64, device=dev))
 
 

@@ -43,7 +43,9 @@ from distributed_raytracer_tpu_torch.ops.kernels.hash import hash_u01, wrap_i32
 CAM_D0 = 8          # camera draws use d = 8..11
 MAX_SPHERES = 512   # the scene must fit the kernel's shared memory
 _MASK32 = 0xFFFFFFFF
-_PLAIN_CHUNK = 32768  # rays per [R, N] sweep in the plain version (64 MB temporaries at N = 512)
+# ray x sphere elements per [R, N] sweep in the plain version (64 MB
+# temporaries: 32,768 rays at N = 512)
+_PLAIN_ELEMS = 32768 * 512
 
 
 def camera_ray_rows(cam_row: torch.Tensor, pix: torch.Tensor, rid: torch.Tensor,
@@ -58,34 +60,43 @@ def camera_ray_rows(cam_row: torch.Tensor, pix: torch.Tensor, rid: torch.Tensor,
 
 def mega_render_plain(cols, attrs, cam_row, *, bounce_seed: int, cam_seed: int,
                       rid_base: int, pix0: int, n_valid: int, n_cap: int, w: int,
-                      max_depth: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      max_depth: int, sweep: Optional[Callable] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel on any device: a dense trace of
-    the live rays, depth by depth, the [R, N] sweep taken _PLAIN_CHUNK
-    rays at a time.  Returns (colors [n_cap, 3] f32, bounces [1] int64: the number
-    of (ray, bounce) sweeps run)."""
+    the live rays, depth by depth, the [R, N] sweep taken _PLAIN_ELEMS / N
+    rays at a time (sweep: trace_plain's).  Returns (colors [n_cap, 3] f32,
+    bounces [1] int64: the number of (ray, bounce) sweeps run)."""
     dev = cols.device
     pix = pix0 + torch.arange(n_valid, dtype=torch.int64, device=dev)
     rid = (rid_base + pix) & _MASK32
     colors = torch.zeros(n_cap, 3, dtype=torch.float32, device=dev)
     bounces = trace_plain(cols, attrs, cam_row, pix, rid, bounce_seed=bounce_seed,
-                          cam_seed=cam_seed, w=w, max_depth=max_depth, colors=colors)
+                          cam_seed=cam_seed, w=w, max_depth=max_depth, colors=colors,
+                          sweep=sweep)
     return colors, torch.tensor([bounces], dtype=torch.int64, device=dev)
 
 
 def trace_plain(cols, attrs, cam_row, pix, rid, *, bounce_seed: int, cam_seed: int, w: int,
-                max_depth: int, colors: torch.Tensor, record: Optional[Callable] = None) -> int:
+                max_depth: int, colors: torch.Tensor, record: Optional[Callable] = None,
+                sweep: Optional[Callable] = None) -> int:
     """The plain trace of rays 0..R-1 (pixel ids pix, ray ids rid, int64
-    [R]) shared by the render and the recording forward.  Writes each
-    finished ray's color into colors[:R]; when given, record(depth, rays,
-    o, d, atten, shade, t, winner, fin) is called with every chunk of
-    live rays, their pre-bounce state and what the bounce computed.
-    Returns the number of (ray, bounce) sweeps run."""
+    [R]) shared by the render and the recording forward, dense and walk.
+    Writes each finished ray's color into colors[:R]; when given,
+    record(depth, rays, o, d, atten, shade, t, winner, fin) is called with
+    every chunk of live rays, their pre-bounce state and what the bounce
+    computed.  sweep(ox, oy, oz, dx, dy, dz, a, inv_a) -> (t, winner)
+    replaces the dense sweep_winner over (cols, attrs).  Returns the
+    number of (ray, bounce) sweeps run."""
     dev = cols.device
     ox, oy, oz, dx, dy, dz = camera_ray_rows(cam_row, pix, rid, cam_seed, w)
     o = torch.stack([ox, oy, oz], -1)
     d = torch.stack([dx, dy, dz], -1)
     atten = torch.ones_like(o)
     alive = torch.arange(pix.numel(), dtype=torch.int64, device=dev)
+    step = max(1, _PLAIN_ELEMS // cols.shape[1])
+    if sweep is None:
+        def sweep(*ray):
+            return sweep_winner(*ray, cols, attrs)
     bounces = 0
     for depth in range(max_depth):
         if alive.numel() == 0:
@@ -93,13 +104,13 @@ def trace_plain(cols, attrs, cam_row, pix, rid, *, bounce_seed: int, cam_seed: i
         bounces += alive.numel()
         seed = wrap_i32(bounce_seed + depth * 65537)
         still = []
-        for c0 in range(0, alive.numel(), _PLAIN_CHUNK):
-            idx = alive[c0:c0 + _PLAIN_CHUNK]
+        for c0 in range(0, alive.numel(), step):
+            idx = alive[c0:c0 + step]
             ro, rd = o[idx], d[idx]
             rx, ry, rz = ro.unbind(-1)
             qx, qy, qz = rd.unbind(-1)
             a = qx * qx + qy * qy + qz * qz
-            t, win = sweep_winner(rx, ry, rz, qx, qy, qz, a, 1.0 / a, cols, attrs)
+            t, win = sweep(rx, ry, rz, qx, qy, qz, a, 1.0 / a)
             act = torch.ones_like(t, dtype=torch.bool)
             draws = tuple(hash_u01(rid[idx], seed, k) for k in range(5))
             v = shade_vals(rx, ry, rz, qx, qy, qz, a, act, t, win, draws)
@@ -179,8 +190,8 @@ def mega_render_supported(scene: Scene) -> bool:
 
 def _too_many(n: int) -> str:
     return (f"scene has {n} spheres; the mega render kernel sweeps at most "
-            f"{MAX_SPHERES}. Larger scenes need the walk engine (ROADMAP "
-            f"Queue 1 item 6, kernel K9), which is not ported yet")
+            f"{MAX_SPHERES}. Larger scenes take the walk engine "
+            f"(ops/kernels/mega_walk_kernel.py; render_progressive routes to it)")
 
 
 def prepare(scene: Scene, camera: Camera, device=None):

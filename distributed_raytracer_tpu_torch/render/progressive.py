@@ -1,9 +1,10 @@
 """Progressive accumulation with checkpoint and resume.
 
 The port of distributed_raytracer_tpu/render/progressive.py for the mega
-engine.  The state is (raw_sum, samples_done, seed) and is saved
-atomically after sample batches, so a lost process resumes from its last
-batch.
+engine: the dense kernel up to 512 spheres, the walk past them
+(progressive.py:121-189 there).  The state is (raw_sum, samples_done,
+seed) and is saved atomically after sample batches, so a lost process
+resumes from its last batch.
 
 Noise: each batch renders its samples with two int32 seeds derived from
 (seed, samples_done) by numpy's SeedSequence.  This is the same estimator
@@ -27,8 +28,15 @@ from distributed_raytracer_tpu_torch.core.device import resolve_device
 from distributed_raytracer_tpu_torch.models.scene import Scene
 from distributed_raytracer_tpu_torch.ops.camera import Camera
 from distributed_raytracer_tpu_torch.ops.kernels.mega_render_kernel import (
+    mega_render_supported,
     render_wavefront_sum_mega,
 )
+from distributed_raytracer_tpu_torch.ops.kernels.mega_walk_kernel import (
+    render_wavefront_sum_mega_walk,
+    walk_pack_for,
+)
+
+WALK_CHUNK = 256  # slots per walk chunk (progressive.py:171 in the JAX package)
 
 # the JAX package's other engines and the ROADMAP items that port them
 _NOT_PORTED = {
@@ -126,7 +134,10 @@ def render_progressive(
     """Render spp samples per pixel in batches, checkpointing after every
     batch.  A compatible checkpoint (same seed, image size, engine and
     batch) is resumed; any other is started over.  engine="mega" is the
-    one engine ported so far."""
+    one engine ported so far: it renders a scene of at most 512 spheres
+    with the dense kernel and a larger one with the walk
+    (walk_pack_for(chunk=256), built once); the two give equal images at
+    equal content."""
     if engine in _NOT_PORTED:
         raise NotImplementedError(
             f"engine {engine!r} is not ported yet: {_NOT_PORTED[engine]}")
@@ -134,7 +145,19 @@ def render_progressive(
         raise ValueError(f"unknown engine {engine!r}")
     spp = spp if spp is not None else camera.samples_per_pixel
     dev = resolve_device(device)
-    scene, camera_dev = scene.to(dev), camera.to(dev)
+    camera_dev = camera.to(dev)
+    if mega_render_supported(scene):
+        scene_dev = scene.to(dev)
+
+        def render(n, bounce_seed, cam_seed):
+            return render_wavefront_sum_mega(scene_dev, camera_dev, n, bounce_seed, cam_seed,
+                                             device=dev)
+    else:
+        pack = walk_pack_for(scene, camera, chunk=WALK_CHUNK).to(dev)
+
+        def render(n, bounce_seed, cam_seed):
+            return render_wavefront_sum_mega_walk(pack, camera_dev, n, bounce_seed, cam_seed,
+                                                  device=dev)
 
     state: Optional[AccumState] = None
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
@@ -153,8 +176,7 @@ def render_progressive(
     while state.samples_done < spp:
         n = min(batch, spp - state.samples_done)
         bounce_seed, cam_seed = batch_seeds(seed, state.samples_done)
-        delta = render_wavefront_sum_mega(scene, camera_dev, n, bounce_seed, cam_seed,
-                                          device=dev)
+        delta = render(n, bounce_seed, cam_seed)
         state.raw_sum = state.raw_sum + delta.cpu().numpy()
         state.samples_done += n
         if checkpoint_path:

@@ -7,11 +7,17 @@ the card with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 import pytest
 import torch
 
-from distributed_raytracer_tpu_torch import image_loss, make_tape_camera_tracer
+from distributed_raytracer_tpu_torch import (
+    image_loss,
+    make_tape_camera_tracer,
+    make_tape_camera_walk_tracer,
+)
 from distributed_raytracer_tpu_torch.models import presets
+from distributed_raytracer_tpu_torch.ops.camera import camera_scalar_row
 from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
 from distributed_raytracer_tpu_torch.ops.kernels import mega_render_kernel as mrk
 from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_bwd_kernel as wbk
+from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_kernel as mwk
 
 pytestmark = pytest.mark.cuda
 
@@ -120,4 +126,76 @@ def test_tracer_gradients_on_card(card):
     for k, v in p.items():
         assert torch.isfinite(v.grad).all(), k
         assert float(v.grad[487:].abs().max()) == 0.0, k  # padding spheres
+    assert float(p["albedo"].grad.abs().max()) > 0.0
+
+
+def _walk_camera(width):
+    return presets.make_camera(aspect_ratio=16.0 / 9.0, image_width=width, samples_per_pixel=1,
+                               max_depth=8, vfov=55.0, lookfrom=(0.0, 20.0, 60.0),
+                               lookat=(0.0, 0.0, 0.0), vup=(0.0, 1.0, 0.0),
+                               defocus_angle=0.0, focus_dist=10.0)
+
+
+def _walk_args(scene, camera, card):
+    pack = mwk.walk_pack_for(scene, camera, chunk=256)
+    p = pack.to(card)
+    return pack, (p.scene_pack, p.attrs, p.bounds, p.chunk_len,
+                  camera_scalar_row(camera).to(card).contiguous())
+
+
+@pytest.mark.parametrize("n", [600, 8192])
+def test_walk_matches_plain_on_card(card, n):
+    """K9 render and record against their plain versions, bit for bit,
+    with the kernel's counters equal to the plain count."""
+    scene = presets.random_sphere_field(n, seed=5, extent=30.0)
+    camera = _walk_camera(128)
+    _, args = _walk_args(scene, camera, card)
+    r = camera.num_pixels
+    kw = dict(bounce_seed=123456, cam_seed=987654, pix0=0, n_valid=r, w=camera.image_width,
+              max_depth=camera.max_depth)
+    before = mwk.mega_walk_sample_cuda.launches
+    got, got_st = mwk.mega_walk_sample(*args, rid_base=0, n_cap=r, **kw)
+    assert mwk.mega_walk_sample_cuda.launches == before + 1
+    want, want_st = mwk.mega_walk_sample_plain(*args, rid_base=0, n_cap=r, **kw)
+    rec = mwk.mega_walk_forward_camera(*args, **kw)
+    rec_plain = mwk.mega_walk_forward_camera_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got_st, want_st)
+    assert torch.equal(rec.colors, got) and torch.equal(rec.stats, got_st)
+    assert torch.equal(rec.lengths, rec_plain.lengths)
+    assert torch.equal(_written_rows(rec), _written_rows(rec_plain))
+
+
+def test_walk_backward_past_512_on_card(card):
+    """K8 past 512 slots (8,448: bins past 512 by global atomics) against the plain walk."""
+    scene = presets.random_sphere_field(8192, seed=5, extent=30.0)
+    camera = _walk_camera(128)
+    pack, args = _walk_args(scene, camera, card)
+    out = mwk.mega_walk_forward_camera(*args, bounce_seed=11, cam_seed=22, pix0=0,
+                                       n_valid=camera.num_pixels, w=camera.image_width,
+                                       max_depth=camera.max_depth)
+    g = torch.randn(camera.num_pixels, 3, generator=torch.Generator().manual_seed(3)).to(card)
+    n = pack.n_slots
+    got = wbk.mega_walk_backward(out.tape, out.lengths, g, n)
+    want = wbk.mega_walk_backward_plain(out.tape, out.lengths, g, n)
+    torch.cuda.synchronize()
+    scale = want[:n].abs().max(dim=0).values + 1e-8
+    assert float(((got[:n] - want[:n]) / scale).abs().max()) < 1e-4
+    assert float(got[n].abs().max()) == 0.0  # the no-hit bin
+
+
+def test_walk_tracer_gradients_on_card(card):
+    scene = presets.random_sphere_field(8192, seed=5, extent=30.0, pad_to=8200)
+    camera = _walk_camera(128)
+    tracer = make_tape_camera_walk_tracer(camera, 11, 22, scene, chunk=256)
+    p = {k: v.to(card).requires_grad_() for k, v in scene.diff_params().items()}
+    before = (mwk.mega_walk_forward_camera_cuda.launches, wbk.mega_walk_backward_cuda.launches)
+    colors = tracer(scene.with_diff_params(p), torch.arange(camera.num_pixels))
+    image_loss(colors, torch.zeros_like(colors)).backward()
+    assert (mwk.mega_walk_forward_camera_cuda.launches,
+            wbk.mega_walk_backward_cuda.launches) == (before[0] + 1, before[1] + 1)
+    for k, v in p.items():
+        assert torch.isfinite(v.grad).all(), k
+        assert float(v.grad[8193:].abs().max()) == 0.0, k  # absent from the pack
     assert float(p["albedo"].grad.abs().max()) > 0.0

@@ -30,7 +30,8 @@ def _modules():
 def test_port_imports_no_jax():
     mods = _modules()
     for m in ("cli", "grad.tapegrad", "grad.diff_render", "ops.kernels.local_f",
-              "ops.kernels.mega_kernel", "ops.kernels.mega_walk_bwd_kernel"):
+              "ops.kernels.mega_kernel", "ops.kernels.mega_walk_bwd_kernel", "native",
+              "ops.kernels.culled_kernel", "ops.kernels.mega_walk_kernel"):
         assert f"distributed_raytracer_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
