@@ -9,8 +9,10 @@ two main paths through their entry points on the RTiOW final scene at
 CLI; and the scene-gradient training step, with three Adam steps), then
 the walk engine's two on bench.py's 8,192-sphere field at 1024x576,
 depth 8 (the walk training step, and the progressive render routed past
-512 spheres), and prints one JSON line of kernel numbers and, last, one
-JSON line with the device.  Any failed phase raises, so the exit code is nonzero and no
+512 spheres), then the gradients through rays and the camera pose on the
+final scene (the ray-table tracer on 262,144 rays strided over 1200x675,
+and the pose tracer on all 810,000 pixels, depth 50), and prints one JSON
+line of kernel numbers and, last, one JSON line with the device.  Any failed phase raises, so the exit code is nonzero and no
 result line is printed.  Without a CUDA card it exits with code 2.
 
     python3 chip_smoke.py --record out/chip_smoke.json
@@ -31,27 +33,31 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ("mega_render", "mega_forward", "mega_walk_bwd", "mega_walk")
+KERNELS = ("mega_render", "mega_forward", "mega_walk_bwd", "mega_walk", "mega_bwd")
 SOURCE = "distributed_raytracer_tpu_torch/csrc/{}.cu"
 REPLACES = {
     "mega_render": "distributed_raytracer_tpu/ops/pallas/mega_render_kernel.py:179",
     "mega_forward": "distributed_raytracer_tpu/ops/pallas/mega_kernel.py:102",
     "mega_walk_bwd": "distributed_raytracer_tpu/ops/pallas/mega_walk_bwd_kernel.py:59",
     "mega_walk": "distributed_raytracer_tpu/ops/pallas/mega_walk_kernel.py:198",
+    "mega_bwd": "distributed_raytracer_tpu/ops/pallas/mega_bwd_kernel.py:215",
 }
 # each row of the kernels line and the source it launches: K9 has two
 # instantiations (render, pallas_call mega_walk_kernel.py:602; record,
 # :734), K8 two shapes (the dense tracer's 512 spheres, whose bins all sit
 # in shared memory; the walk's 8,448 slots, most of whose bins go to g_pm
-# by global atomics)
+# by global atomics), K6 two modes (camera; ray, mega_forward :512), and K8
+# two instantiations (without and with ray grads)
 ROW_SOURCE = {"mega_forward": "mega_forward", "mega_walk_bwd": "mega_walk_bwd",
               "mega_walk": "mega_walk", "mega_walk_record": "mega_walk",
-              "mega_walk_bwd_global": "mega_walk_bwd"}
+              "mega_walk_bwd_global": "mega_walk_bwd", "mega_forward_ray": "mega_forward",
+              "mega_bwd": "mega_bwd", "mega_walk_bwd_rays": "mega_walk_bwd"}
 NO_LIBRARY = {  # why library_ms is null
     "mega_render": "no single PyTorch call computes a path-traced image sample",
     "mega_forward": "no single PyTorch call computes a recording path-traced sample",
     "mega_walk_bwd": "no single PyTorch call computes the reverse walk of a bounce tape",
     "mega_walk": "no single PyTorch call computes a path-traced sample with a chunk walk",
+    "mega_bwd": "no single PyTorch call computes the reverse walk of a bounce tape",
 }
 FP32_LANES_PER_SM = 128      # Hopper SM: 4 partitions x 32 FP32 lanes
 # FP32 operations of one ray x sphere test in the sweep (bounce.cuh
@@ -87,6 +93,17 @@ K8_BAND = 1e-4
 # two walks part by 1.09e-4 of an albedo column, also summed over terms of
 # both signs, and the referee is printed as well
 K8_MAIN_BAND = 1e-3
+# the primary-ray cotangents of K7 and of K8 with ray grads against their
+# plain versions, each component normalized by its max over the rays
+# without a grazing hit (over all rays the grazing rays' large cotangents
+# set the scale, and the band is K8_BAND or K8_MAIN_BAND as for g_pm): one
+# ray's cotangent by forward-mode duals against reverse-mode autograd, no
+# sums; measured 1.48e-4 (d_o z, 262,144 rays depth 8), where the float64
+# referee puts the kernel 4.5e-4 and the plain walk 3.1e-4 from float64
+RAY_CALM_BAND = 1e-3
+# the ray-table tracer's shape (scripts/bench_megabwd.py:14-19): this many
+# rays strided over the 1200x675 image, depth 50
+RAY_TRACER_RAYS = 262144
 
 
 class SmokeFailure(RuntimeError):
@@ -680,6 +697,270 @@ def check_walk_path(dev, presets, final, cam_main, k5_main, k5_bounces, k5_ms,
     }
 
 
+def ray_walk_check(label, out, n, kernel, plain, band, referee=False):
+    """A reverse walk with ray grads (K7, or K8 with ray_grads) against its
+    plain version on one tape: g_pm's nine columns and the ray cotangents'
+    six components, each normalized by its max, the kernel run twice (the
+    atomics' run-to-run spread; the ray cotangents have no atomics).
+    kernel(g) and plain(g, dtype) return (g_pm, g_ray).  g_pm and the ray
+    cotangents are held to band over all rays, the ray cotangents also to
+    RAY_CALM_BAND normalized over the rays without a grazing hit (where
+    1 / sqrt(disc) enters d_o and d_d directly).  With referee, both against the
+    same walk in float64, with and without the grazing rays.  Returns (max
+    abs err, max normalized err, plain ms, g_color, the kernel's result)."""
+    dev = out.tape.device
+    g = torch.randn(out.lengths.shape[0], 3,
+                    generator=torch.Generator().manual_seed(3)).to(dev)
+    got = kernel(g)
+    again = kernel(g)
+    want, plain_ms = cuda_timed(lambda: plain(g, torch.float32))
+    graz = grazing_rays(out)
+
+    def errs(a, b, rays=slice(None)):
+        return torch.cat([col_err(a[0][:n].double(), b[0][:n].double()),
+                          col_err(a[1][rays].double(), b[1][rays].double())])
+
+    fmt = lambda e: [f"{x:.2e}" for x in e.tolist()]
+    err, calm = errs(got, want), errs(got, want, ~graz)
+    log(f"[walk] {label}: vs plain, g_pm {fmt(err[:9])}; ray cotangents {fmt(err[9:])} all "
+        f"rays, {fmt(calm[9:])} without the {int(graz.sum()):,} of {graz.numel():,} with a "
+        f"grazing hit; run-to-run {float(errs(again, got).max()):.2e} normalized, ray "
+        f"cotangents equal {torch.equal(again[1], got[1])}; plain {plain_ms:.1f} ms")
+    if referee:  # both f32 walks against the same walk in float64
+        exact = plain(g, torch.float64)
+        log(f"[walk] {label}: vs the float64 walk, kernel {fmt(errs(got, exact))}, plain "
+            f"{fmt(errs(want, exact))}")
+        g_calm = torch.where(graz[:, None], 0.0, g)
+        exact, k_calm, p_calm = (plain(g_calm, torch.float64), kernel(g_calm),
+                                 plain(g_calm, torch.float32))
+        log(f"[walk] {label}: without the grazing rays, vs the float64 walk, kernel "
+            f"{fmt(errs(k_calm, exact))}, plain {fmt(errs(p_calm, exact))}")
+    require(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
+            f"{label}: gradients not finite")
+    require(float(err.max()) < band, f"{label}: vs plain {float(err.max()):.3e}")
+    require(float(calm[9:].max()) < RAY_CALM_BAND,
+            f"{label}: ray cotangents without the grazing rays vs plain "
+            f"{float(calm[9:].max()):.3e}")
+    abs_err = max(float((got[0][:n] - want[0][:n]).abs().max()),
+                  float((got[1] - want[1]).abs().max()))
+    return abs_err, float(err.max()), plain_ms, g, got
+
+
+def check_ray_pose_path(dev, final, cam_main) -> dict:
+    """Phases 15-18: gradients through rays and the camera pose.  K6 in ray
+    mode against its plain version and against K6 in camera mode; K7
+    against its plain version and against K8 on one tape; K8 with ray grads
+    against its plain version; then the ray-table tracer and the pose
+    tracer at full width through the entry points."""
+    from distributed_raytracer_tpu_torch import (
+        image_loss,
+        make_tape_camera_pose_tracer,
+        make_tape_tracer,
+    )
+    from distributed_raytracer_tpu_torch.ops.camera import camera_scalar_row
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_bwd_kernel as mbk
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_render_kernel as mrk
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_bwd_kernel as wbk
+
+    cols, attrs, cam_row = mrk.prepare(final, cam_main, dev)
+    n_sph, n_pix, w = final.num_spheres, cam_main.num_pixels, cam_main.image_width
+
+    def rays_of(pix):
+        return mrk.camera_rays_host(cam_row, pix, pix, CAM_SEED, w)
+
+    def ray_fwd(o, d, depth):
+        return mk.mega_forward_cuda(cols, attrs, o, d, bounce_seed=BOUNCE_SEED, max_depth=depth)
+
+    def same_tape(label, got, want):
+        """The two recording forwards wrote the same lengths, rows and
+        colors, bit for bit; returns the max abs difference of the float
+        columns and the colors."""
+        require(torch.equal(got.lengths, want.lengths), f"{label}: K6 lengths differ")
+        gr, wr = written_rows(got), written_rows(want)
+        err = max(float((gr[:, :mk.T_IDX] - wr[:, :mk.T_IDX]).abs().max()),
+                  float((got.colors - want.colors).abs().max()))
+        same = (torch.equal(gr.view(torch.int32), wr.view(torch.int32))
+                and torch.equal(got.colors, want.colors))
+        log(f"[k6-ray] {label}: tape rows {gr.shape[0]:,}, max abs err {err:.3e}, rows and "
+            f"colors equal bit for bit {same}")
+        require(same, f"{label}: K6 ray mode differs")
+        return err
+
+    # --- phase 15: K6 ray mode against its plain version and against camera mode ---
+    ids = torch.arange(RAY_TRACER_RAYS, dtype=torch.int64, device=dev) * n_pix // RAY_TRACER_RAYS
+    o_s, d_s = rays_of(ids)
+    for depth in (8, cam_main.max_depth):  # reduced, then the ray tracer's shape
+        got = ray_fwd(o_s, d_s, depth)
+        want, ray_plain_ms = cuda_timed(lambda: mk.mega_forward_plain(
+            cols, attrs, o_s, d_s, bounce_seed=BOUNCE_SEED, max_depth=depth))
+        ray_err = same_tape(f"final, {RAY_TRACER_RAYS:,} strided rays, depth {depth}, vs plain "
+                            f"({ray_plain_ms:.1f} ms)", got, want)
+    out_ray = got
+    del want
+    pix = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    o_m, d_m = rays_of(pix)
+    cam_kw = dict(bounce_seed=BOUNCE_SEED, cam_seed=CAM_SEED, pix0=0, n_valid=n_pix, w=w,
+                  max_depth=cam_main.max_depth)
+    out_main = mk.mega_forward_camera_cuda(cols, attrs, cam_row, None, **cam_kw)
+    same_tape("final 1200x675 depth 50, rays of camera_rays_host vs camera mode",
+              ray_fwd(o_m, d_m, cam_main.max_depth), out_main)
+    del o_m, d_m
+    ray_ms = cuda_ms(lambda: ray_fwd(o_s, d_s, cam_main.max_depth), 3)
+    sweep = sweep_work(out_ray, cols)
+    rows_ray = int(out_ray.lengths.sum())
+    ray_bytes = rows_ray * 128 + RAY_TRACER_RAYS * (24 + 16) + 15 * n_sph * 4 + 8
+
+    # --- phase 16: K7 against its plain version, and against K8 on one tape ---
+    def k7(out):
+        return (lambda g: mbk.mega_backward_cuda(cols, attrs, out.tape, out.lengths, g, n_sph),
+                lambda g, dt: mbk.mega_backward_plain(cols, attrs, out.tape, out.lengths, g,
+                                                      n_sph, dtype=dt))
+
+    out_8 = ray_fwd(o_s, d_s, 8)
+    ray_walk_check(f"K7, {RAY_TRACER_RAYS:,} rays depth 8", out_8, n_sph, *k7(out_8), K8_BAND,
+                   referee=True)
+    del out_8
+    k7_err, k7_norm, k7_plain_ms, g_ray_tr, k7_got = ray_walk_check(
+        f"K7, {RAY_TRACER_RAYS:,} rays depth 50", out_ray, n_sph, *k7(out_ray), K8_MAIN_BAND,
+        referee=True)
+    k8_on = wbk.mega_walk_backward_cuda(out_ray.tape, out_ray.lengths, g_ray_tr, n_sph,
+                                        ray_grads=True)
+    torch.cuda.synchronize()
+    k78 = float(col_err(k7_got[0][:n_sph], k8_on[0][:n_sph]).max())
+    k78_rays = torch.equal(k7_got[1], k8_on[1])
+    log(f"[k7] K7 vs K8 with ray grads on one tape: g_pm {k78:.2e} normalized (atomics' order), "
+        f"ray cotangents equal bit for bit {k78_rays}")
+    require(k78 < K8_BAND and k78_rays, "K7 and K8 differ on one tape")
+    k7_ms = cuda_ms(lambda: mbk.mega_backward_cuda(cols, attrs, out_ray.tape, out_ray.lengths,
+                                                   g_ray_tr, n_sph), 3)
+    k7_flops, k7_bytes, k7_rows = walk_work(out_ray, n_sph)
+    k7_bytes += RAY_TRACER_RAYS * 24 + 15 * n_sph * 4
+
+    # --- phase 17: K8 with ray grads against its plain version ---
+    def k8r(out):
+        return (lambda g: wbk.mega_walk_backward_cuda(out.tape, out.lengths, g, n_sph,
+                                                      ray_grads=True),
+                lambda g, dt: wbk.mega_walk_backward_plain(out.tape, out.lengths, g, n_sph,
+                                                           dtype=dt, ray_grads=True))
+
+    out_c8 = mk.mega_forward_camera_cuda(cols, attrs, cam_row, None,
+                                         **dict(cam_kw, max_depth=8))
+    _, _, _, g8, got8 = ray_walk_check("K8 with ray grads, final 1200x675 depth 8", out_c8,
+                                       n_sph, *k8r(out_c8), K8_BAND)
+    off = wbk.mega_walk_backward_cuda(out_c8.tape, out_c8.lengths, g8, n_sph)
+    off_err = float(col_err(off[:n_sph], got8[0][:n_sph]).max())
+    log(f"[k8] without ray grads vs with, same tape: g_pm {off_err:.2e} normalized "
+        f"(atomics' order)")
+    require(off_err < K8_BAND, "K8 with and without ray grads differ")
+    del out_c8
+    k8r_err, k8r_norm, k8r_plain_ms, g_main, _ = ray_walk_check(
+        "K8 with ray grads, final 1200x675 depth 50", out_main, n_sph, *k8r(out_main),
+        K8_MAIN_BAND, referee=True)
+    k8r_ms = cuda_ms(lambda: wbk.mega_walk_backward_cuda(out_main.tape, out_main.lengths, g_main,
+                                                         n_sph, ray_grads=True), 3)
+    k8_off_ms = cuda_ms(lambda: wbk.mega_walk_backward_cuda(out_main.tape, out_main.lengths,
+                                                            g_main, n_sph), 3)
+    k6_cam_ms = cuda_ms(lambda: mk.mega_forward_camera_cuda(cols, attrs, cam_row, None,
+                                                            **cam_kw), 3)
+    k8r_flops, k8r_bytes, _ = walk_work(out_main, n_sph)
+    k8r_bytes += n_pix * 24
+    del out_main
+
+    # --- phase 18: both tracers at full width, through the entry points ---
+    p = {k: v.to(dev).clone().requires_grad_() for k, v in final.diff_params().items()}
+    scene_p = final.with_diff_params(p)
+    ray_o, ray_d = o_s.clone().requires_grad_(), d_s.clone().requires_grad_()
+    tracer = make_tape_tracer(BOUNCE_SEED, cam_main.max_depth)
+    target = torch.zeros(RAY_TRACER_RAYS, 3, device=dev)
+    mk.mega_forward_cuda.launches = 0
+    mbk.mega_backward_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loss = image_loss(tracer(scene_p, ray_o, ray_d), target)
+    loss.backward()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    ray_launches = {"mega_forward_ray": mk.mega_forward_cuda.launches,
+                    "mega_bwd": mbk.mega_backward_cuda.launches}
+    log(f"[ray-train] final, {RAY_TRACER_RAYS:,} strided rays depth 50: loss {loss.item():.6f}, "
+        f"first step {wall * 1e3:.1f} ms wall, launches {ray_launches}")
+    require(all(v >= 1 for v in ray_launches.values()),
+            f"the ray-table step skipped a kernel: {ray_launches}")
+    for name, t in [*p.items(), ("ray_o", ray_o), ("ray_d", ray_d)]:
+        require(bool(torch.isfinite(t.grad).all()), f"ray-table {name} gradient not finite")
+    require(float(ray_d.grad.abs().max()) > 0.0 and float(p["albedo"].grad.abs().max()) > 0.0,
+            "ray-table gradients are zero")
+    log("[ray-train] grads finite; max |grad| " + ", ".join(
+        f"{k} {float(t.grad.abs().max()):.3e}" for k, t in [*p.items(), ("ray_o", ray_o),
+                                                            ("ray_d", ray_d)]))
+
+    def ray_step():
+        for t in (*p.values(), ray_o, ray_d):
+            t.grad = None
+        image_loss(tracer(scene_p, ray_o, ray_d), target).backward()
+
+    ray_step_ms = cuda_ms(ray_step, 3)
+    log(f"[time] ray-table fwd+bwd step {ray_step_ms:.3f} ms "
+        f"({RAY_TRACER_RAYS / ray_step_ms * 1e3:,.0f} rays/s): K6 ray {ray_ms:.3f} ms "
+        f"({ray_ms / ray_step_ms:.1%}), K7 {k7_ms:.3f} ms ({k7_ms / ray_step_ms:.1%}), the rest "
+        f"{ray_step_ms - ray_ms - k7_ms:.3f} ms; tape {rows_ray:,} rows, K7 reads {k7_rows:,}")
+
+    pose = make_tape_camera_pose_tracer(cam_main, BOUNCE_SEED, CAM_SEED)
+    row = camera_scalar_row(cam_main).to(dev).requires_grad_()
+    target = torch.zeros(n_pix, 3, device=dev)
+    for v in p.values():
+        v.grad = None
+    mk.mega_forward_camera_cuda.launches = 0
+    wbk.mega_walk_backward_cuda.ray_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loss = image_loss(pose(scene_p, row), target)
+    loss.backward()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    pose_launches = {"mega_forward": mk.mega_forward_camera_cuda.launches,
+                     "mega_walk_bwd_rays": wbk.mega_walk_backward_cuda.ray_launches}
+    log(f"[pose-train] final 1200x675 depth 50, {n_pix:,} rays: loss {loss.item():.6f}, first "
+        f"step {wall * 1e3:.1f} ms wall, launches {pose_launches}; d cam_row "
+        f"{[round(x, 4) for x in row.grad[:19].tolist()]}")
+    require(all(v >= 1 for v in pose_launches.values()),
+            f"the pose step skipped a kernel: {pose_launches}")
+    require(bool(torch.isfinite(row.grad).all()) and float(row.grad.abs().max()) > 0.0,
+            "d cam_row is not finite and nonzero")
+    for k, v in p.items():
+        require(bool(torch.isfinite(v.grad).all()), f"pose-tracer {k} gradient not finite")
+
+    def pose_step():
+        for t in (*p.values(), row):
+            t.grad = None
+        image_loss(pose(scene_p, row), target).backward()
+
+    pose_step_ms = cuda_ms(pose_step, 3)
+    log(f"[time] pose fwd+bwd step {pose_step_ms:.3f} ms ({n_pix / pose_step_ms * 1e3:,.0f} "
+        f"rays/s): K6 camera {k6_cam_ms:.3f} ms ({k6_cam_ms / pose_step_ms:.1%}), K8 with ray "
+        f"grads {k8r_ms:.3f} ms ({k8r_ms / pose_step_ms:.1%}; without them {k8_off_ms:.3f} ms), "
+        f"the rest {pose_step_ms - k6_cam_ms - k8r_ms:.3f} ms")
+
+    return {
+        "mega_forward_ray": dict(launches=ray_launches["mega_forward_ray"], max_abs_err=ray_err,
+                                 ms=ray_ms, plain_ms=ray_plain_ms, flops=sweep["flops"],
+                                 bytes=ray_bytes),
+        "mega_bwd": dict(launches=ray_launches["mega_bwd"], max_abs_err=k7_err, ms=k7_ms,
+                         plain_ms=k7_plain_ms, flops=k7_flops, bytes=k7_bytes,
+                         max_norm_err=k7_norm),
+        "mega_walk_bwd_rays": dict(launches=pose_launches["mega_walk_bwd_rays"],
+                                   max_abs_err=k8r_err, ms=k8r_ms, plain_ms=k8r_plain_ms,
+                                   flops=k8r_flops, bytes=k8r_bytes, max_norm_err=k8r_norm),
+        "record": dict(ray_step_ms=ray_step_ms, ray_rays_per_s=RAY_TRACER_RAYS / ray_step_ms
+                       * 1e3, k6_ray_ms=ray_ms, k7_ms=k7_ms, ray_tape_rows=rows_ray,
+                       k7_rows=k7_rows, ray_sweep=sweep, pose_step_ms=pose_step_ms,
+                       pose_rays_per_s=n_pix / pose_step_ms * 1e3, k6_camera_ms=k6_cam_ms,
+                       k8_rays_ms=k8r_ms, k8_no_rays_ms=k8_off_ms, k7_vs_k8=k78,
+                       d_cam_row=row.grad.tolist()),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, help="write the run's numbers to this JSON file")
@@ -806,6 +1087,9 @@ def main() -> int:
     # --- phases 10-14: the walk engine past 512 spheres (K9, K8 past 512) ---
     peak = fp32_peak_flops()
     walk = check_walk_path(dev, presets, final, cam_main, k, kb, ms, peak)
+    # --- phases 15-18: gradients through rays and the camera pose (K6 ray mode, K7,
+    # K8 with ray grads) ---
+    rays = check_ray_pose_path(dev, final, cam_main)
 
     # --- phase 9: the kernel line, then the device line last ---
     # K5 at the main-path shape traced the rays K6 recorded (sample 0, the
@@ -821,7 +1105,8 @@ def main() -> int:
         library_note=NO_LIBRARY["mega_render"],
     )]
     for name, g in [(n, grad[n]) for n in ("mega_forward", "mega_walk_bwd")] + [
-            (n, walk[n]) for n in ("mega_walk", "mega_walk_record", "mega_walk_bwd_global")]:
+            (n, walk[n]) for n in ("mega_walk", "mega_walk_record", "mega_walk_bwd_global")] + [
+            (n, rays[n]) for n in ("mega_forward_ray", "mega_bwd", "mega_walk_bwd_rays")]:
         src = ROW_SOURCE[name]
         ops_s = g["flops"] / peak
         bytes_s = g["bytes"] / HBM_BYTES_PER_S
@@ -840,7 +1125,7 @@ def main() -> int:
     if args.record:
         record = dict(card=smi, kernels=kernels, mean_bounces_per_ray=kb / n_pix,
                       main_path_ms_per_sample=wall * 1e3 / 4, gradient_path=grad["record"],
-                      walk_path=walk["record"],
+                      walk_path=walk["record"], ray_pose_path=rays["record"],
                       seconds=time.time() - t_start)
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

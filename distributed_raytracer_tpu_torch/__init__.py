@@ -10,8 +10,10 @@ points run on the CUDA card unless the caller asks for the CPU.
 
 from distributed_raytracer_tpu_torch.grad.diff_render import image_loss
 from distributed_raytracer_tpu_torch.grad.tapegrad import (
+    make_tape_camera_pose_tracer,
     make_tape_camera_tracer,
     make_tape_camera_walk_tracer,
+    make_tape_tracer,
 )
 from distributed_raytracer_tpu_torch.models.scene import (
     ABSORB,
@@ -34,6 +36,8 @@ __all__ = [
     "make_camera",
     "make_tape_camera_tracer",
     "make_tape_camera_walk_tracer",
+    "make_tape_tracer",
+    "make_tape_camera_pose_tracer",
     "render_wavefront_sum_mega_walk",
     "image_loss",
     "LAMBERTIAN",

@@ -26,6 +26,10 @@
 #define ATT_MT 6
 #define ATT_ROWS 7
 
+// the most spheres a kernel holds in shared memory: the scene of K5, K6 and
+// K7, and the g_pm bins K7 and K8 sum there
+#define MAX_SPHERES 512
+
 // Sweeps spheres j0 .. j1-1 (cx, cy, cz, r2) into the running closest hit
 // (best, bi), ascending index with a strict <, so the first minimum wins
 // as in jnp.argmin, and a later range wins only with a smaller t (the

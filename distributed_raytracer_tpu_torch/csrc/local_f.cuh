@@ -214,18 +214,21 @@ __device__ __forceinline__ bool lf_input_used(int k, float mt, bool hit) {
 }
 
 // cot_in[k] = sum_j cot_out[j] * d out_j / d in_k, one forward-mode pass
-// per input.  carry = false skips the o, d, atten inputs (their
-// cotangents are not wanted at the ray's first row).  A zero cotangent
-// term is skipped rather than multiplied, as a reverse sweep would never
-// reach it.
+// per input.  carry_od = false skips the o and d inputs, carry_at = false
+// the atten inputs: at the ray's first row no cotangent is carried on,
+// and o's and d's are wanted only as the primary-ray cotangents (atten is
+// the constant 1 there).  A zero cotangent term is skipped rather than
+// multiplied, as a reverse sweep would never reach it.
 __device__ __forceinline__ void local_f_vjp(const float in[LF_IN], float mt, const float ru[3],
                                             float u, bool hit, bool act,
-                                            const float cot_out[LF_OUT], bool carry,
-                                            float cot_in[LF_IN]) {
+                                            const float cot_out[LF_OUT], bool carry_od,
+                                            bool carry_at, float cot_in[LF_IN]) {
 #pragma unroll 1
   for (int k = 0; k < LF_IN; ++k) {
     cot_in[k] = 0.0f;
-    if ((!carry && k < 9) || !lf_input_used(k, mt, hit)) continue;
+    if ((!carry_od && k < 6) || (!carry_at && k >= 6 && k < 9) || !lf_input_used(k, mt, hit)) {
+      continue;
+    }
     Dual x[LF_IN];
 #pragma unroll
     for (int j = 0; j < LF_IN; ++j) x[j] = Dual(in[j], j == k ? 1.0f : 0.0f);

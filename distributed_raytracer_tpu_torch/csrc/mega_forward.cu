@@ -1,11 +1,15 @@
-// The recording forward: one image sample that also writes the tape the
-// backward walks.
+// The recording forward: one image sample (or one batch of given rays)
+// that also writes the tape the backward walks.
 //
 // Replaces distributed_raytracer_tpu/ops/pallas/mega_kernel.py::
-// _mega_kernel (:102) in camera mode with recorded winner params and the
-// packed int columns (mega_forward_camera :577, the scene-gradient
-// tracer's forward).  What it computes is the same: camera rays made in
-// the kernel, sweep + shade per bounce until each ray finishes or reaches
+// _mega_kernel (:102) in both its modes: camera mode with recorded winner
+// params and the packed int columns (mega_forward_camera :577, the
+// forward of the scene- and pose-gradient tracers), and ray mode
+// (mega_forward :512, the forward of the ray-table tracer), where the
+// primary rays come from a ray table [n_rays, 3] x 2 and the ray index
+// keys the bounce draws (JAX's lane_ray with no rid base).  What it
+// computes is the same: camera rays made in the kernel or read from the
+// table, sweep + shade per bounce until each ray finishes or reaches
 // max_depth, every draw keyed by (rid, depth), and one tape row per
 // bounce holding the pre-bounce state, the draws, the contribution, the
 // winner's parameters and the flags.  What it does not carry over is the
@@ -15,7 +19,7 @@
 //
 // Design: the mega render kernel's (csrc/mega_render.cu): one thread per
 // ray, the scene in shared memory once per block, and the same bounce
-// loop, trace_ray (trace.cuh), instantiated with RECORD = true: the same
+// loop, trace_from (trace.cuh), instantiated with RECORD = true: the same
 // sweep_winner and shade(), so at equal seeds the colors equal the
 // render kernel's bit for bit, and one tape row written per bounce.  The
 // tape is depth-major, [max_depth, R, 32] f32, its columns and flags
@@ -31,7 +35,10 @@
 // the render kernel.
 //
 // Built with -fmad=false (ops/kernels/_build.py), so it agrees with its
-// plain version, ops/kernels/mega_kernel.py::mega_forward_camera_plain.
+// plain versions, ops/kernels/mega_kernel.py::mega_forward_camera_plain
+// and mega_forward_plain.  The winner's parameters are recorded in ray
+// mode too (JAX's ray mode leaves them off its tape), so K8 can walk a
+// ray-mode tape as well as K7, which re-reads them from the scene.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -39,11 +46,14 @@
 
 #define THREADS 128
 
+template <bool RAY_MODE>
 __global__ void __launch_bounds__(THREADS)
 mega_forward_kernel(const float* __restrict__ cols,   // [4, n]: cx, cy, cz, r2
                     const float* __restrict__ attrs,  // [11, n]: ops/kernels/bounce.py A_*
-                    int n, const float* __restrict__ cam,
+                    int n, const float* __restrict__ cam,  // camera mode, else null
                     const int* __restrict__ pixel_ids,  // [n_rays] or null: pix0 + i
+                    const float* __restrict__ ray_o,    // ray mode: [n_rays, 3], else null
+                    const float* __restrict__ ray_d,    // ray mode: [n_rays, 3], else null
                     uint32_t bounce_seed, uint32_t cam_seed, int pix0, int n_rays, int w,
                     int max_depth, float* __restrict__ tape, int* __restrict__ lengths,
                     float* __restrict__ colors, unsigned long long* __restrict__ bounces) {
@@ -55,13 +65,22 @@ mega_forward_kernel(const float* __restrict__ cols,   // [4, n]: cx, cy, cz, r2
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned long long my_bounces = 0;
   if (i < n_rays) {
-    const uint32_t pix = pixel_ids ? (uint32_t)pixel_ids[i] : (uint32_t)(pix0 + i);
-    const uint32_t rid = pix;  // the tracer passes no rid base
     float col[3];
     ResidentScene sc{s_sph, s_att, n};
-    const int rows = trace_ray<true>(sc, s_cam, pix, rid, bounce_seed, cam_seed, (uint32_t)w,
-                                     max_depth, col, tape + (size_t)i * TAPE_COLS,
-                                     (size_t)n_rays * TAPE_COLS, i);
+    float* my_tape = tape + (size_t)i * TAPE_COLS;
+    const size_t stride = (size_t)n_rays * TAPE_COLS;
+    int rows;
+    if constexpr (RAY_MODE) {  // the ray index keys the draws
+      float o[3] = {ray_o[3 * i], ray_o[3 * i + 1], ray_o[3 * i + 2]};
+      float d[3] = {ray_d[3 * i], ray_d[3 * i + 1], ray_d[3 * i + 2]};
+      rows = trace_from<true>(sc, o, d, (uint32_t)i, bounce_seed, max_depth, col, my_tape,
+                              stride, i);
+    } else {
+      const uint32_t pix = pixel_ids ? (uint32_t)pixel_ids[i] : (uint32_t)(pix0 + i);
+      const uint32_t rid = pix;  // the tracer passes no rid base
+      rows = trace_ray<true>(sc, s_cam, pix, rid, bounce_seed, cam_seed, (uint32_t)w, max_depth,
+                             col, my_tape, stride, i);
+    }
     my_bounces = rows;
     lengths[i] = rows;
     colors[3 * i + 0] = col[0];
@@ -71,16 +90,31 @@ mega_forward_kernel(const float* __restrict__ cols,   // [4, n]: cx, cy, cz, r2
   add_count(my_bounces, bounces);
 }
 
+// Camera mode: cam not null, ray_o = ray_d = null.  Ray mode: cam and
+// pixel_ids null, ray_o and ray_d the ray table (cam_seed, pix0 and w
+// unused).
 extern "C" int mega_forward_launch(const float* cols, const float* attrs, int n, const float* cam,
-                                   const int* pixel_ids, int bounce_seed, int cam_seed, int pix0,
-                                   int n_rays, int w, int max_depth, float* tape, int* lengths,
-                                   float* colors, unsigned long long* bounces, void* stream) {
-  if (n < 1 || n > MAX_SPHERES || n_rays < 1 || w < 1 || max_depth < 1) {
+                                   const int* pixel_ids, const float* ray_o, const float* ray_d,
+                                   int bounce_seed, int cam_seed, int pix0, int n_rays, int w,
+                                   int max_depth, float* tape, int* lengths, float* colors,
+                                   unsigned long long* bounces, void* stream) {
+  const bool ray_mode = ray_o != nullptr && ray_d != nullptr;
+  const bool cam_mode = cam != nullptr && ray_o == nullptr && ray_d == nullptr;
+  if (n < 1 || n > MAX_SPHERES || n_rays < 1 || max_depth < 1 || !(ray_mode || cam_mode) ||
+      (cam_mode && w < 1) || (ray_mode && (cam != nullptr || pixel_ids != nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const int blocks = (n_rays + THREADS - 1) / THREADS;
-  mega_forward_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      cols, attrs, n, cam, pixel_ids, (uint32_t)bounce_seed, (uint32_t)cam_seed, pix0, n_rays, w,
-      max_depth, tape, lengths, colors, bounces);
+  // two instantiations, so camera mode runs the code (and registers) it ran
+  // before ray mode was added
+  if (ray_mode) {
+    mega_forward_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        cols, attrs, n, cam, pixel_ids, ray_o, ray_d, (uint32_t)bounce_seed, (uint32_t)cam_seed,
+        pix0, n_rays, w, max_depth, tape, lengths, colors, bounces);
+  } else {
+    mega_forward_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        cols, attrs, n, cam, pixel_ids, ray_o, ray_d, (uint32_t)bounce_seed, (uint32_t)cam_seed,
+        pix0, n_rays, w, max_depth, tape, lengths, colors, bounces);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
-// One camera ray traced to its end: the bounce loop of the mega render
-// kernel (csrc/mega_render.cu), the recording forward (csrc/mega_forward.cu)
-// and the walk kernel (csrc/mega_walk.cu), written once.
+// One ray traced to its end: the bounce loop of the mega render kernel
+// (csrc/mega_render.cu), the recording forward (csrc/mega_forward.cu, in
+// camera and ray mode) and the walk kernel (csrc/mega_walk.cu), written
+// once.
 //
-// trace_ray<RECORD, Scene>: RECORD = false is the render kernels' loop;
+// trace_from<RECORD, Scene> runs the loop from a given primary ray,
+// trace_ray from the camera's.  RECORD = false is the render kernels' loop;
 // RECORD = true runs the same loop with the recording shade<true>
 // (bounce.cuh) and also writes one tape row per bounce (tape.cuh).  Both
 // compute the same values in the same order, so at equal seeds their
@@ -24,11 +26,9 @@
 #include "camera.cuh"
 #include "tape.cuh"
 
-#define MAX_SPHERES 512
-
 // Copies the scene's sweep columns (cx, cy, cz, r2), its seven winner
-// attributes and the camera row into the block's shared memory (512 x 11
-// x 4 B = 22.5 KB at most), then syncs the block.
+// attributes and the camera row (when cam is not null) into the block's
+// shared memory (512 x 11 x 4 B = 22.5 KB at most), then syncs the block.
 __device__ __forceinline__ void stage_scene(const float* __restrict__ cols,
                                             const float* __restrict__ attrs, int n,
                                             const float* __restrict__ cam, float4* s_sph,
@@ -38,7 +38,7 @@ __device__ __forceinline__ void stage_scene(const float* __restrict__ cols,
 #pragma unroll
     for (int r = 0; r < ATT_ROWS; ++r) s_att[r * MAX_SPHERES + j] = attrs[(3 + r) * n + j];
   }
-  if (threadIdx.x < CAM_ROW) s_cam[threadIdx.x] = cam[threadIdx.x];
+  if (cam != nullptr && threadIdx.x < CAM_ROW) s_cam[threadIdx.x] = cam[threadIdx.x];
   __syncthreads();
 }
 
@@ -123,10 +123,12 @@ struct WalkScene {
   }
 };
 
-// Traces the camera ray of pixel pix (draws keyed by rid) through sweep +
-// shade until it finishes or reaches max_depth.  col gets its color:
-// atten x the terminal color, black when it was absorbed or ran out of
-// depth.  Returns the bounces it ran.
+// Traces the primary ray (o, d) (draws keyed by rid) through sweep +
+// shade until it finishes or reaches max_depth; o and d are updated in
+// place.  col gets its color: atten x the terminal color, black when it
+// was absorbed or ran out of depth.  Returns the bounces it ran.  The
+// primary ray comes from the camera (trace_ray below: K5, K6 camera mode,
+// K9) or from a ray table (K6 ray mode).
 //
 // RECORD: bounce k also writes tape row tape[k * depth_stride] (tape
 // points at the ray's depth-0 row): the pre-bounce o, d and atten, the
@@ -135,13 +137,10 @@ struct WalkScene {
 // scene (the slot, for the walk), the ray index `ray` and the flags.  So
 // the bounces run are the rows written.
 template <bool RECORD, class Scene>
-__device__ __forceinline__ int trace_ray(Scene& sc, const float* cam, uint32_t pix,
-                                         uint32_t rid, uint32_t bounce_seed, uint32_t cam_seed,
-                                         uint32_t w, int max_depth, float col[3],
-                                         float* tape = nullptr, size_t depth_stride = 0,
-                                         int ray = 0) {
-  float o[3], d[3];
-  camera_ray(cam, pix, rid, cam_seed, w, o, d);
+__device__ __forceinline__ int trace_from(Scene& sc, float o[3], float d[3], uint32_t rid,
+                                          uint32_t bounce_seed, int max_depth, float col[3],
+                                          float* tape = nullptr, size_t depth_stride = 0,
+                                          int ray = 0) {
   float atten[3] = {1.0f, 1.0f, 1.0f};
   col[0] = col[1] = col[2] = 0.0f;
   int depth = 0;
@@ -201,4 +200,16 @@ __device__ __forceinline__ int trace_ray(Scene& sc, const float* cam, uint32_t p
     atten[2] = atten[2] * at[2];
   }  // a ray still alive at max_depth contributes black
   return depth;
+}
+
+// trace_from for the camera ray of pixel pix (camera draws keyed by rid).
+template <bool RECORD, class Scene>
+__device__ __forceinline__ int trace_ray(Scene& sc, const float* cam, uint32_t pix,
+                                         uint32_t rid, uint32_t bounce_seed, uint32_t cam_seed,
+                                         uint32_t w, int max_depth, float col[3],
+                                         float* tape = nullptr, size_t depth_stride = 0,
+                                         int ray = 0) {
+  float o[3], d[3];
+  camera_ray(cam, pix, rid, cam_seed, w, o, d);
+  return trace_from<RECORD>(sc, o, d, rid, bounce_seed, max_depth, col, tape, depth_stride, ray);
 }

@@ -1,16 +1,21 @@
-"""Scene gradients by a recorded tape: the port of the camera tracers of
-distributed_raytracer_tpu/grad/tapegrad.py (`make_tape_camera_tracer`
-with variant "unified", and `make_tape_camera_walk_tracer` for scenes past
-512 spheres) and of their replay oracle `replay_from_tape`.
+"""Gradients by a recorded tape: the port of the tracers of
+distributed_raytracer_tpu/grad/tapegrad.py — `make_tape_camera_tracer`
+(variant "unified") and `make_tape_camera_walk_tracer` (scenes past 512
+spheres) for scene gradients, `make_tape_tracer` (use_mega=True,
+mega_bwd=True) for gradients in the scene and the rays, and
+`make_tape_camera_pose_tracer` for gradients in the scene and the camera
+pose — and of their replay oracle `replay_from_tape`.
 
 The forward is a recording forward (ops/kernels/mega_kernel.py, kernel
-csrc/mega_forward.cu; or the walk's, ops/kernels/mega_walk_kernel.py,
-kernel csrc/mega_walk.cu): colors, and a tape with one row per bounce that
-holds the winner's parameters.  The backward walks that tape in reverse
-(ops/kernels/mega_walk_bwd_kernel.py, kernel csrc/mega_walk_bwd.cu) and
-returns the cotangents of the five differentiable scene fields.  The two
-are joined by a torch.autograd.Function.  The camera and the primary rays
-are not differentiated.
+csrc/mega_forward.cu in camera or ray mode; or the walk's,
+ops/kernels/mega_walk_kernel.py, kernel csrc/mega_walk.cu): colors, and a
+tape with one row per bounce that holds the winner's parameters.  The
+backward walks that tape in reverse (ops/kernels/mega_walk_bwd_kernel.py,
+kernel csrc/mega_walk_bwd.cu, parameters off the tape; or
+ops/kernels/mega_bwd_kernel.py, kernel csrc/mega_bwd.cu, parameters from
+the scene) and returns the cotangents of the five differentiable scene
+fields and, where asked, of each ray's primary origin and direction.  The
+two are joined by a torch.autograd.Function.
 """
 
 from __future__ import annotations
@@ -22,9 +27,10 @@ import torch
 
 from distributed_raytracer_tpu_torch.core.device import resolve_device
 from distributed_raytracer_tpu_torch.models.scene import Scene
-from distributed_raytracer_tpu_torch.ops.camera import Camera, camera_scalar_row
+from distributed_raytracer_tpu_torch.ops.camera import CAM_ROW, Camera, camera_scalar_row
 from distributed_raytracer_tpu_torch.ops.kernels.bounce import scene_sweep_arrays
 from distributed_raytracer_tpu_torch.ops.kernels.local_f import local_f_rows
+from distributed_raytracer_tpu_torch.ops.kernels.mega_bwd_kernel import mega_backward
 from distributed_raytracer_tpu_torch.ops.kernels.mega_kernel import (
     F_ACT,
     F_FIN,
@@ -36,8 +42,10 @@ from distributed_raytracer_tpu_torch.ops.kernels.mega_kernel import (
     T_O,
     T_RU,
     T_U,
+    mega_forward,
     mega_forward_camera,
 )
+from distributed_raytracer_tpu_torch.ops.kernels.mega_render_kernel import camera_rays_host
 from distributed_raytracer_tpu_torch.ops.kernels.mega_walk_bwd_kernel import (
     N_PARAMS,
     int_col,
@@ -51,15 +59,20 @@ from distributed_raytracer_tpu_torch.ops.kernels.mega_walk_kernel import (
 
 
 def replay_from_tape(scene: Scene, tape: torch.Tensor, lengths: torch.Tensor,
-                     n_rays: int) -> torch.Tensor:
+                     n_rays: int, ray_o: Optional[torch.Tensor] = None,
+                     ray_d: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Colors [n_rays, 3] re-computed from a recorded tape with the control
     flow (winner, hit, finish) and the draws frozen and the winner's
     parameters gathered from the scene by the recorded winner index:
     differentiable by autograd in the scene's tensors.  The oracle of the
-    backward (tapegrad.py:699-745 with rays_from_tape=True): each ray
-    starts from its recorded primary ray at attenuation 1, and each later
-    row from the state the replay computed (the backward reads it off the
-    tape instead)."""
+    backwards (tapegrad.py:699-745): each ray starts at attenuation 1 from
+    its recorded primary ray (rays_from_tape=True there) or, given ray_o
+    and ray_d [n_rays, 3], from those (rays_from_tape=False), so the
+    colors are differentiable in the rays too; each later row starts from
+    the state the replay computed (the backward reads it off the tape
+    instead)."""
+    if (ray_o is None) != (ray_d is None):
+        raise ValueError("pass both ray_o and ray_d, or neither")
     if lengths.shape != (n_rays,):
         raise ValueError(f"lengths must be [{n_rays}], got {tuple(lengths.shape)}")
     colors = torch.zeros(n_rays, 3, dtype=torch.float32, device=tape.device)
@@ -75,7 +88,8 @@ def replay_from_tape(scene: Scene, tape: torch.Tensor, lengths: torch.Tensor,
             break
         rows = tape[depth, rays]
         if depth == 0:
-            state = list(rows[:, T_O:T_D + 3].unbind(-1)) + [torch.ones_like(rows[:, 0])] * 3
+            od = rows[:, T_O:T_D + 3] if ray_o is None else torch.cat([ray_o[rays], ray_d[rays]], 1)
+            state = list(od.unbind(-1)) + [torch.ones_like(rows[:, 0])] * 3
         flags = int_col(rows, T_FLG)
         fin = (flags & F_FIN) != 0
         # a row that hit nothing gathers sphere 0; local_f_rows guards its
@@ -144,6 +158,137 @@ def make_tape_camera_tracer(camera: Camera, bounce_seed: int, cam_seed: int, *,
                   n_valid=int(pixel_ids.shape[0]), w=camera.image_width, max_depth=depth)
         return _TapeCameraTrace.apply(s.centers, s.radii, s.albedo, s.fuzz, s.ior, s.mat_type,
                                       ids, cam_row, kw)
+
+    return tracer
+
+
+class _TapeRayTrace(torch.autograd.Function):
+    """colors = trace(centers, radii, albedo, fuzz, ior, ray_o, ray_d);
+    the backward is the dense reverse walk with parameters from the
+    scene (K7)."""
+
+    @staticmethod
+    def forward(ctx, centers, radii, albedo, fuzz, ior, mat_type, ray_o, ray_d, ray_grads, kw):
+        scene = Scene(centers=centers, radii=radii, albedo=albedo, mat_type=mat_type,
+                      fuzz=fuzz, ior=ior)
+        cols, attrs = scene_sweep_arrays(scene)
+        out = mega_forward(cols, attrs, ray_o.contiguous(), ray_d.contiguous(), **kw)
+        ctx.save_for_backward(cols, attrs, out.tape, out.lengths)
+        ctx.ray_grads = ray_grads
+        return out.colors
+
+    @staticmethod
+    def backward(ctx, g_color):
+        cols, attrs, tape, lengths = ctx.saved_tensors
+        n = cols.shape[1]
+        want_rays = ctx.ray_grads and (ctx.needs_input_grad[6] or ctx.needs_input_grad[7])
+        out = mega_backward(cols, attrs, tape, lengths, g_color.contiguous(), n,
+                            ray_grads=want_rays)
+        g_pm = out[0] if want_rays else out
+        g_o = g_d = None
+        if ctx.needs_input_grad[6] or ctx.needs_input_grad[7]:
+            # ray_grads=False: zeros, as the JAX tracer documents
+            g_ray = out[1] if want_rays else g_color.new_zeros(lengths.shape[0], 6)
+            g_o, g_d = g_ray[:, 0:3], g_ray[:, 3:6]
+        return (g_pm[:n, 0:3], g_pm[:n, 3], g_pm[:n, 4:7], g_pm[:n, 7], g_pm[:n, 8],
+                None, g_o, g_d, None, None)
+
+
+def make_tape_tracer(bounce_seed: int, max_depth: int, *, ray_grads: bool = True, device=None):
+    """The tracer of given rays (tapegrad.py:1273 with use_mega=True,
+    mega_bwd=True): tracer(scene, ray_o [R, 3], ray_d [R, 3]) -> colors
+    [R, 3], differentiable in scene.centers, radii, albedo, fuzz and ior
+    and in ray_o and ray_d.  The forward is the recording forward in ray
+    mode (K6), the backward the dense reverse walk (K7).
+
+    bounce_seed (an int32 seed in place of the JAX key) keys ray i's
+    bounce draws (i, bounce_seed + depth * 65537).  ray_grads=False: the
+    backward skips the primary-ray cotangents, and ray_o and ray_d get
+    zero gradients (the scene-only shape; JAX documents the same).  The
+    TPU scheduling knobs of the JAX tracer (pool, budget, block_rays,
+    mega_pad, segsum, use_fused, planar, refill_every, loop_unroll, the
+    NaN-poisoned clean flag) have no counterpart.  Runs on the CUDA card
+    unless device says otherwise; scene and rays are moved to that device
+    (differentiable moves)."""
+    dev = resolve_device(device)
+    kw = dict(bounce_seed=int(bounce_seed), max_depth=int(max_depth))
+
+    def tracer(scene: Scene, ray_o: torch.Tensor, ray_d: torch.Tensor) -> torch.Tensor:
+        if ray_o.dim() != 2 or ray_o.shape[1] != 3 or ray_d.shape != ray_o.shape:
+            raise ValueError(f"ray_o and ray_d must be [R, 3], got {tuple(ray_o.shape)} and "
+                             f"{tuple(ray_d.shape)}")
+        s = scene.to(dev)
+        f32 = dict(device=dev, dtype=torch.float32)
+        return _TapeRayTrace.apply(s.centers, s.radii, s.albedo, s.fuzz, s.ior, s.mat_type,
+                                   ray_o.to(**f32), ray_d.to(**f32), bool(ray_grads), kw)
+
+    return tracer
+
+
+class _TapeCameraPoseTrace(torch.autograd.Function):
+    """colors = trace(centers, radii, albedo, fuzz, ior, cam_row); the
+    backward is the reverse walk with ray grads (K8), then the VJP of
+    camera_rays_host into the camera row."""
+
+    @staticmethod
+    def forward(ctx, centers, radii, albedo, fuzz, ior, mat_type, cam_row, kw):
+        scene = Scene(centers=centers, radii=radii, albedo=albedo, mat_type=mat_type,
+                      fuzz=fuzz, ior=ior)
+        cols, attrs = scene_sweep_arrays(scene)
+        out = mega_forward_camera(cols, attrs, cam_row.contiguous(), None, **kw)
+        ctx.save_for_backward(out.tape, out.lengths, cam_row)
+        ctx.n = centers.shape[0]
+        ctx.kw = kw
+        return out.colors
+
+    @staticmethod
+    def backward(ctx, g_color):
+        tape, lengths, cam_row = ctx.saved_tensors
+        n, kw = ctx.n, ctx.kw
+        g_pm, g_ray = mega_walk_backward(tape, lengths, g_color.contiguous(), n, ray_grads=True)
+        g_cam = None
+        if ctx.needs_input_grad[6]:
+            pix = torch.arange(kw["n_valid"], dtype=torch.int64, device=cam_row.device)
+            with torch.enable_grad():
+                cr = cam_row.detach().requires_grad_()
+                o, d = camera_rays_host(cr, pix, pix, kw["cam_seed"], kw["w"])
+                (g_cam,) = torch.autograd.grad([o, d], [cr], [g_ray[:, 0:3], g_ray[:, 3:6]])
+        return (g_pm[:n, 0:3], g_pm[:n, 3], g_pm[:n, 4:7], g_pm[:n, 7], g_pm[:n, 8],
+                None, g_cam, None)
+
+
+def make_tape_camera_pose_tracer(camera: Camera, bounce_seed: int, cam_seed: int, *,
+                                 max_depth: Optional[int] = None, device=None):
+    """Camera-pose gradients (tapegrad.py:1012): tracer(scene, cam_row
+    [24]) -> colors [n_pix, 3] of the whole image, differentiable in
+    scene.centers, radii, albedo, fuzz and ior and in the camera row
+    (center, pixel00, pixel deltas, defocus disk).  Pass cam_row =
+    camera_scalar_row(camera) of a camera whose pose fields carry
+    gradients (ops/camera.py::derive of tensors that require grad) and
+    autograd chains the row's cotangents to the pose.  camera gives the
+    shape (width, height, depth); its values are superseded by cam_row.
+
+    The forward is the recording forward in camera mode (K6) on the
+    pixels 0..n_pix-1, so at equal seeds the colors equal
+    make_tape_camera_tracer(..., iota_pix=True)'s bit for bit.  The
+    backward is the reverse walk with ray grads (K8): the cotangents of
+    each pixel's primary ray at its first row (depth 0 on the port's
+    per-ray tape, so JAX's camera_pos_from_tape has no counterpart),
+    pushed through torch.autograd of camera_rays_host (the rays the
+    kernel makes, as a differentiable function of cam_row).  Runs on the
+    CUDA card unless device says otherwise."""
+    dev = resolve_device(device)
+    kw = dict(bounce_seed=int(bounce_seed), cam_seed=int(cam_seed), pix0=0,
+              n_valid=camera.num_pixels, w=camera.image_width,
+              max_depth=camera.max_depth if max_depth is None else int(max_depth))
+
+    def tracer(scene: Scene, cam_row: torch.Tensor) -> torch.Tensor:
+        if tuple(cam_row.shape) != (CAM_ROW,):
+            raise ValueError(f"cam_row must be [{CAM_ROW}], got {tuple(cam_row.shape)}")
+        s = scene.to(dev)
+        return _TapeCameraPoseTrace.apply(s.centers, s.radii, s.albedo, s.fuzz, s.ior,
+                                          s.mat_type, cam_row.to(device=dev,
+                                                                 dtype=torch.float32), kw)
 
     return tracer
 

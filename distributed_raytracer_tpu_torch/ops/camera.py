@@ -157,9 +157,12 @@ def rays_from_row(cam_row: torch.Tensor, pixel_i: torch.Tensor,
                   pixel_j: torch.Tensor, draws) -> Tuple[torch.Tensor, ...]:
     """Camera::get_ray on [R] rows from the 24-float camera row: pixel
     jitter (jx, jy) and the sqrt-polar defocus-disk sample (u1, u2).
-    Returns (ox, oy, oz, dx, dy, dz); directions are not normalized."""
+    Returns (ox, oy, oz, dx, dy, dz); directions are not normalized.
+    Tensor operations throughout, so the rays are differentiable in
+    cam_row (the disk rows get zero cotangents without defocus, as the
+    where passes none), and nothing is read back to the host."""
     jx, jy, u1, u2 = draws
-    c = [float(x) for x in cam_row.detach().cpu().tolist()]
+    c = cam_row
     fi = pixel_i.to(torch.float32) + (jx - 0.5)
     fj = pixel_j.to(torch.float32) + (jy - 0.5)
     ps = [c[_C_P00 + k] + fi * c[_C_PDU + k] + fj * c[_C_PDV + k] for k in range(3)]
@@ -167,11 +170,9 @@ def rays_from_row(cam_row: torch.Tensor, pixel_i: torch.Tensor,
     th = 6.2831853 * u2
     p_x = rr * torch.cos(th)
     p_y = rr * torch.sin(th)
-    if c[_C_ANG] > 0.0:
-        o = [c[_C_CTR + k] + p_x * c[_C_DDU + k] + p_y * c[_C_DDV + k]
-             for k in range(3)]
-    else:
-        o = [torch.full_like(fi, c[_C_CTR + k]) for k in range(3)]
+    use_disk = c[_C_ANG] > 0.0
+    o = [torch.where(use_disk, c[_C_CTR + k] + p_x * c[_C_DDU + k] + p_y * c[_C_DDV + k],
+                     c[_C_CTR + k]) for k in range(3)]
     return (o[0], o[1], o[2], ps[0] - o[0], ps[1] - o[1], ps[2] - o[2])
 
 

@@ -1,24 +1,35 @@
-"""The recording forward: one image sample and the tape its backward walks.
+"""The recording forward: one image sample, or one batch of given rays,
+and the tape its backward walks.
 
-Port of distributed_raytracer_tpu/ops/pallas/mega_kernel.py in camera
-mode with recorded winner params and packed int columns (the forward of
-the scene-gradient tracer, `mega_forward_camera` there).  On a CUDA
-tensor `mega_forward_camera` launches the hand-written kernel
-csrc/mega_forward.cu; on a CPU tensor it runs `mega_forward_camera_plain`,
-the same arithmetic in plain PyTorch (the plain render's trace, recording).
+Port of distributed_raytracer_tpu/ops/pallas/mega_kernel.py in its two
+modes: camera mode with recorded winner params and packed int columns
+(`mega_forward_camera` there, the forward of the scene- and pose-gradient
+tracers) and ray mode (`mega_forward`, the forward of the ray-table
+tracer).  On CUDA tensors `mega_forward_camera` and `mega_forward` launch
+the hand-written kernel csrc/mega_forward.cu; on CPU tensors they run
+`mega_forward_camera_plain` and `mega_forward_plain`, the same arithmetic
+in plain PyTorch (the plain render's trace, recording).
 
-Every draw is the render kernel's (rid, depth)-keyed hash with rid = the
-pixel id, so at equal seeds the colors equal `mega_render_colors` of
-sample 0 bit for bit.
+In camera mode every draw is the render kernel's (rid, depth)-keyed hash
+with rid = the pixel id, so at equal seeds the colors equal
+`mega_render_colors` of sample 0 bit for bit.  In ray mode the primary
+rays are a ray table [R, 3] x 2 and rid is the ray's index (JAX's lane
+ray with no rid base): the bounce draws are keyed (i, bounce_seed + depth
+* 65537), and there are no camera draws.  So ray mode given the rays
+camera_rays_host makes for pixels 0..R-1 (rid = pix) traces what camera
+mode traces, bit for bit.
 
 The tape is depth-major, [max_depth, R, 32] f32: ray i's row at depth k
 is tape[k, i], holding the pre-bounce state, the draws, the contribution,
 the winner's parameters and, as int32 bits, the winner index, the ray and
-the flags (columns T_* below; JAX's row meaning).  Rows at depth >=
-lengths[i] are never written (torch.empty).  The TPU arguments pool,
-budget, block_rays, pad_rows, cam_out and variant are scheduling and
-layout and have no counterpart: every ray runs to its end, so nothing is
-truncated, and there is no clean flag and no NaN poisoning.
+the flags (columns T_* below; JAX's row meaning).  Both modes record the
+winner's parameters (JAX's ray mode does not), so either backward, K7
+(parameters re-read from the scene) or K8 (read off the tape), can walk
+either tape.  Rows at depth >= lengths[i] are never written
+(torch.empty).  The TPU arguments pool, budget, block_rays, pad_rows,
+cam_out and variant are scheduling and layout and have no counterpart:
+every ray runs to its end, so nothing is truncated, and there is no clean
+flag and no NaN poisoning.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from distributed_raytracer_tpu_torch.ops.kernels import _build
 from distributed_raytracer_tpu_torch.ops.kernels.bounce import A_IDX
 from distributed_raytracer_tpu_torch.ops.kernels.hash import wrap_i32
 from distributed_raytracer_tpu_torch.ops.kernels.mega_render_kernel import (
+    camera_rays_host,
     check_sweep_args,
     trace_plain,
 )
@@ -57,20 +69,15 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).view(torch.float32)
 
 
-def mega_forward_camera_plain(cols, attrs, cam_row, pixel_ids: Optional[torch.Tensor], *,
-                              bounce_seed: int, cam_seed: int, pix0: int, n_valid: int, w: int,
-                              max_depth: int, sweep: Optional[Callable] = None) -> MegaOut:
-    """Plain PyTorch version of the recording forward on any device.
-    pixel_ids [n_valid] int, or None for pix0 + arange(n_valid); sweep:
-    trace_plain's."""
+def _record_plain(cols, attrs, o, d, rid, *, bounce_seed: int, max_depth: int,
+                  sweep: Optional[Callable]) -> MegaOut:
+    """trace_plain of the primary rays (o, d) with ray ids rid, recording
+    the tape."""
     dev = cols.device
-    if pixel_ids is None:
-        pix = pix0 + torch.arange(n_valid, dtype=torch.int64, device=dev)
-    else:
-        pix = pixel_ids.to(torch.int64)
-    tape = torch.empty(max_depth, n_valid, TAPE_COLS, dtype=torch.float32, device=dev)
-    lengths = torch.zeros(n_valid, dtype=torch.int32, device=dev)
-    colors = torch.zeros(n_valid, 3, dtype=torch.float32, device=dev)
+    n_rays = rid.shape[0]
+    tape = torch.empty(max_depth, n_rays, TAPE_COLS, dtype=torch.float32, device=dev)
+    lengths = torch.zeros(n_rays, dtype=torch.int32, device=dev)
+    colors = torch.zeros(n_rays, 3, dtype=torch.float32, device=dev)
 
     def record(depth, rays, o, d, atten, v, t, win, fin):
         hit = t < BIG * 0.5
@@ -84,30 +91,47 @@ def mega_forward_camera_plain(cols, attrs, cam_row, pixel_ids: Optional[torch.Te
         tape[depth, rays] = torch.stack(cols_, -1)
         lengths[rays] = depth + 1
 
-    bounces = trace_plain(cols, attrs, cam_row, pix, pix & 0xFFFFFFFF, bounce_seed=bounce_seed,
-                          cam_seed=cam_seed, w=w, max_depth=max_depth, colors=colors,
-                          record=record, sweep=sweep)
+    bounces = trace_plain(cols, attrs, o, d, rid, bounce_seed=bounce_seed, max_depth=max_depth,
+                          colors=colors, record=record, sweep=sweep)
     return MegaOut(tape, lengths, colors, torch.tensor([bounces], dtype=torch.int64, device=dev))
+
+
+def mega_forward_camera_plain(cols, attrs, cam_row, pixel_ids: Optional[torch.Tensor], *,
+                              bounce_seed: int, cam_seed: int, pix0: int, n_valid: int, w: int,
+                              max_depth: int, sweep: Optional[Callable] = None) -> MegaOut:
+    """Plain PyTorch version of the camera-mode recording forward on any
+    device.  pixel_ids [n_valid] int, or None for pix0 + arange(n_valid);
+    sweep: trace_plain's."""
+    if pixel_ids is None:
+        pix = pix0 + torch.arange(n_valid, dtype=torch.int64, device=cols.device)
+    else:
+        pix = pixel_ids.to(torch.int64)
+    rid = pix & 0xFFFFFFFF
+    o, d = camera_rays_host(cam_row, pix, rid, cam_seed, w)
+    return _record_plain(cols, attrs, o, d, rid, bounce_seed=bounce_seed, max_depth=max_depth,
+                         sweep=sweep)
+
+
+def mega_forward_plain(cols, attrs, ray_o, ray_d, *, bounce_seed: int, max_depth: int,
+                       sweep: Optional[Callable] = None) -> MegaOut:
+    """Plain PyTorch version of the ray-mode recording forward on any
+    device: the rays ray_o, ray_d [R, 3] f32, ray i's draws keyed by i."""
+    rid = torch.arange(ray_o.shape[0], dtype=torch.int64, device=cols.device)
+    return _record_plain(cols, attrs, ray_o, ray_d, rid, bounce_seed=bounce_seed,
+                         max_depth=max_depth, sweep=sweep)
 
 
 def _argtypes(fn):
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    fn.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def mega_forward_camera_cuda(cols, attrs, cam_row, pixel_ids: Optional[torch.Tensor], *,
-                             bounce_seed: int, cam_seed: int, pix0: int, n_valid: int, w: int,
-                             max_depth: int) -> MegaOut:
-    """Launch csrc/mega_forward.cu on the current stream (no sync).  Same
-    arguments and results as mega_forward_camera_plain."""
-    n = check_sweep_args(cols, attrs, cam_row)
-    if pixel_ids is not None and (pixel_ids.device != cols.device or pixel_ids.dtype != torch.int32
-                                  or tuple(pixel_ids.shape) != (n_valid,)
-                                  or not pixel_ids.is_contiguous()):
-        raise ValueError(f"pixel_ids must be a contiguous int32 tensor of shape ({n_valid},) "
-                         f"on {cols.device}")
+def _launch(cols, attrs, n: int, cam_row, pixel_ids, ray_o, ray_d, *, bounce_seed: int,
+            cam_seed: int, pix0: int, n_valid: int, w: int, max_depth: int) -> MegaOut:
+    """Launch csrc/mega_forward.cu in camera mode (cam_row given) or ray
+    mode (ray_o, ray_d given) on the current stream."""
     if n_valid < 1 or max_depth < 1:
         raise ValueError(f"need n_valid >= 1 and max_depth >= 1, got {n_valid}, {max_depth}")
     dev = cols.device
@@ -115,23 +139,67 @@ def mega_forward_camera_cuda(cols, attrs, cam_row, pixel_ids: Optional[torch.Ten
     lengths = torch.empty(n_valid, dtype=torch.int32, device=dev)
     colors = torch.empty(n_valid, 3, dtype=torch.float32, device=dev)
     bounces = torch.zeros(1, dtype=torch.int64, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
     fn = _argtypes(_build.load("mega_forward").mega_forward_launch)
-    err = fn(cols.data_ptr(), attrs.data_ptr(), n, cam_row.data_ptr(),
-             None if pixel_ids is None else pixel_ids.data_ptr(), wrap_i32(bounce_seed),
-             wrap_i32(cam_seed), pix0, n_valid, w, max_depth, tape.data_ptr(),
-             lengths.data_ptr(), colors.data_ptr(), bounces.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(cols.data_ptr(), attrs.data_ptr(), n, ptr(cam_row), ptr(pixel_ids), ptr(ray_o),
+             ptr(ray_d), wrap_i32(bounce_seed), wrap_i32(cam_seed), pix0, n_valid, w,
+             max_depth, tape.data_ptr(), lengths.data_ptr(), colors.data_ptr(),
+             bounces.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mega_forward_launch")
-    mega_forward_camera_cuda.launches += 1
     return MegaOut(tape, lengths, colors, bounces)
+
+
+def mega_forward_camera_cuda(cols, attrs, cam_row, pixel_ids: Optional[torch.Tensor], *,
+                             bounce_seed: int, cam_seed: int, pix0: int, n_valid: int, w: int,
+                             max_depth: int) -> MegaOut:
+    """Launch csrc/mega_forward.cu in camera mode on the current stream (no
+    sync).  Same arguments and results as mega_forward_camera_plain."""
+    n = check_sweep_args(cols, attrs, cam_row)
+    if pixel_ids is not None and (pixel_ids.device != cols.device or pixel_ids.dtype != torch.int32
+                                  or tuple(pixel_ids.shape) != (n_valid,)
+                                  or not pixel_ids.is_contiguous()):
+        raise ValueError(f"pixel_ids must be a contiguous int32 tensor of shape ({n_valid},) "
+                         f"on {cols.device}")
+    out = _launch(cols, attrs, n, cam_row, pixel_ids, None, None, bounce_seed=bounce_seed,
+                  cam_seed=cam_seed, pix0=pix0, n_valid=n_valid, w=w, max_depth=max_depth)
+    mega_forward_camera_cuda.launches += 1
+    return out
 
 
 mega_forward_camera_cuda.launches = 0
 
 
+def mega_forward_cuda(cols, attrs, ray_o, ray_d, *, bounce_seed: int,
+                      max_depth: int) -> MegaOut:
+    """Launch csrc/mega_forward.cu in ray mode on the current stream (no
+    sync).  Same arguments and results as mega_forward_plain."""
+    n = check_sweep_args(cols, attrs, None)
+    r = ray_o.shape[0]
+    for name, x in (("ray_o", ray_o), ("ray_d", ray_d)):
+        if (x.device != cols.device or x.dtype != torch.float32 or tuple(x.shape) != (r, 3)
+                or not x.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 tensor of shape ({r}, 3) "
+                             f"on {cols.device}")
+    out = _launch(cols, attrs, n, None, None, ray_o, ray_d, bounce_seed=bounce_seed, cam_seed=0,
+                  pix0=0, n_valid=r, w=1, max_depth=max_depth)
+    mega_forward_cuda.launches += 1
+    return out
+
+
+mega_forward_cuda.launches = 0
+
+
 def mega_forward_camera(cols, attrs, cam_row, pixel_ids: Optional[torch.Tensor], **kw) -> MegaOut:
-    """The recording forward: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """The camera-mode recording forward: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if cols.device.type == "cpu":
         return mega_forward_camera_plain(cols, attrs, cam_row, pixel_ids, **kw)
     return mega_forward_camera_cuda(cols, attrs, cam_row, pixel_ids, **kw)
+
+
+def mega_forward(cols, attrs, ray_o, ray_d, **kw) -> MegaOut:
+    """The ray-mode recording forward: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if cols.device.type == "cpu":
+        return mega_forward_plain(cols, attrs, ray_o, ray_d, **kw)
+    return mega_forward_cuda(cols, attrs, ray_o, ray_d, **kw)

@@ -58,6 +58,19 @@ def camera_ray_rows(cam_row: torch.Tensor, pix: torch.Tensor, rid: torch.Tensor,
     return rays_from_row(cam_row, pix - j * w, j, draws)
 
 
+def camera_rays_host(cam_row: torch.Tensor, pix: torch.Tensor, rid: torch.Tensor,
+                     cam_seed: int, w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [R, 3], d [R, 3]): the primary rays of pixels pix with ray ids
+    rid, bit for bit the rays the kernels make in place (csrc/camera.cuh),
+    as differentiable functions of the [24] camera row: the port of
+    camera_rays_host (mega_render_kernel.py:140).  torch.autograd of it
+    maps primary-ray cotangents to cam_row cotangents (the pose tracer's
+    backward), and on to the pose when cam_row was derived from it."""
+    ox, oy, oz, dx, dy, dz = camera_ray_rows(cam_row, pix.to(torch.int64),
+                                             rid.to(torch.int64) & _MASK32, cam_seed, w)
+    return torch.stack([ox, oy, oz], -1), torch.stack([dx, dy, dz], -1)
+
+
 def mega_render_plain(cols, attrs, cam_row, *, bounce_seed: int, cam_seed: int,
                       rid_base: int, pix0: int, n_valid: int, n_cap: int, w: int,
                       max_depth: int, sweep: Optional[Callable] = None
@@ -70,29 +83,28 @@ def mega_render_plain(cols, attrs, cam_row, *, bounce_seed: int, cam_seed: int,
     pix = pix0 + torch.arange(n_valid, dtype=torch.int64, device=dev)
     rid = (rid_base + pix) & _MASK32
     colors = torch.zeros(n_cap, 3, dtype=torch.float32, device=dev)
-    bounces = trace_plain(cols, attrs, cam_row, pix, rid, bounce_seed=bounce_seed,
-                          cam_seed=cam_seed, w=w, max_depth=max_depth, colors=colors,
-                          sweep=sweep)
+    o, d = camera_rays_host(cam_row, pix, rid, cam_seed, w)
+    bounces = trace_plain(cols, attrs, o, d, rid, bounce_seed=bounce_seed, max_depth=max_depth,
+                          colors=colors, sweep=sweep)
     return colors, torch.tensor([bounces], dtype=torch.int64, device=dev)
 
 
-def trace_plain(cols, attrs, cam_row, pix, rid, *, bounce_seed: int, cam_seed: int, w: int,
-                max_depth: int, colors: torch.Tensor, record: Optional[Callable] = None,
+def trace_plain(cols, attrs, o, d, rid, *, bounce_seed: int, max_depth: int,
+                colors: torch.Tensor, record: Optional[Callable] = None,
                 sweep: Optional[Callable] = None) -> int:
-    """The plain trace of rays 0..R-1 (pixel ids pix, ray ids rid, int64
-    [R]) shared by the render and the recording forward, dense and walk.
-    Writes each finished ray's color into colors[:R]; when given,
-    record(depth, rays, o, d, atten, shade, t, winner, fin) is called with
-    every chunk of live rays, their pre-bounce state and what the bounce
-    computed.  sweep(ox, oy, oz, dx, dy, dz, a, inv_a) -> (t, winner)
-    replaces the dense sweep_winner over (cols, attrs).  Returns the
-    number of (ray, bounce) sweeps run."""
+    """The plain trace of rays 0..R-1 from their primary rays o, d [R, 3]
+    (the camera's, or a ray table's; not modified) with ray ids rid (int64
+    [R], keying the bounce draws), shared by the render and the recording
+    forward, dense and walk.  Writes each finished ray's color into
+    colors[:R]; when given, record(depth, rays, o, d, atten, shade, t,
+    winner, fin) is called with every chunk of live rays, their
+    pre-bounce state and what the bounce computed.  sweep(ox, oy, oz, dx,
+    dy, dz, a, inv_a) -> (t, winner) replaces the dense sweep_winner over
+    (cols, attrs).  Returns the number of (ray, bounce) sweeps run."""
     dev = cols.device
-    ox, oy, oz, dx, dy, dz = camera_ray_rows(cam_row, pix, rid, cam_seed, w)
-    o = torch.stack([ox, oy, oz], -1)
-    d = torch.stack([dx, dy, dz], -1)
+    o, d = o.detach().clone(), d.detach().clone()
     atten = torch.ones_like(o)
-    alive = torch.arange(pix.numel(), dtype=torch.int64, device=dev)
+    alive = torch.arange(rid.numel(), dtype=torch.int64, device=dev)
     step = max(1, _PLAIN_ELEMS // cols.shape[1])
     if sweep is None:
         def sweep(*ray):
@@ -138,10 +150,13 @@ def _argtypes(fn):
 
 def check_sweep_args(cols, attrs, cam_row) -> int:
     """Check the scene and camera operands a kernel reads (CUDA float32,
-    contiguous, [4, n], [11, n] and [24], n <= MAX_SPHERES); returns n."""
+    contiguous, [4, n], [11, n] and [24] unless cam_row is None, n <=
+    MAX_SPHERES); returns n."""
     n = cols.shape[1]
-    for name, x, shape in (("cols", cols, (4, n)), ("attrs", attrs, (A_ROWS, n)),
-                           ("cam_row", cam_row, (CAM_ROW,))):
+    operands = [("cols", cols, (4, n)), ("attrs", attrs, (A_ROWS, n))]
+    if cam_row is not None:
+        operands.append(("cam_row", cam_row, (CAM_ROW,)))
+    for name, x, shape in operands:
         if x.device.type != "cuda" or x.dtype != torch.float32:
             raise ValueError(f"{name} must be a CUDA float32 tensor")
         if tuple(x.shape) != shape or not x.is_contiguous():

@@ -2,18 +2,20 @@
 
 Port of distributed_raytracer_tpu/ops/pallas/mega_walk_bwd_kernel.py
 (`mega_walk_backward` with the packed tape, the backward of the scene-
-gradient tracer), with its VJP body mega_bwd_kernel.py::_local_f_rows as
-ops/kernels/local_f.py.  On a CUDA tensor `mega_walk_backward` launches
-the hand-written kernel csrc/mega_walk_bwd.cu; on a CPU tensor it runs
-`mega_walk_backward_plain`: the same walk with torch autograd of
-local_f_rows as each row's VJP.
+and pose-gradient tracers, with and without `ray_grads`), with its VJP
+body mega_bwd_kernel.py::_local_f_rows as ops/kernels/local_f.py.  On a
+CUDA tensor `mega_walk_backward` launches the hand-written kernel
+csrc/mega_walk_bwd.cu; on a CPU tensor it runs `mega_walk_backward_plain`:
+the same walk with torch autograd of local_f_rows as each row's VJP.
 
 Every entry returns g_pm [n + 1, 9]: per-sphere cotangents of (center 3,
-radius, albedo 3, fuzz, ior), row n being the no-hit bin.  n is any
-count: the dense tracer's spheres (at most 512) or the walk tracer's slots
-(8,448 at the bench's 8,192 spheres); the kernel sums the first 513 bins
-in shared memory (every bin up to 512 spheres) and the rest with global
-atomics.
+radius, albedo 3, fuzz, ior), row n being the no-hit bin; with
+ray_grads=True it returns (g_pm, g_ray), g_ray [R, 6] the cotangents of
+each ray's primary origin and direction (zero for a ray with no rows or
+that did not finish).  n is any count: the dense tracer's spheres (at most
+512) or the walk tracer's slots (8,448 at the bench's 8,192 spheres); the
+kernel sums the first 513 bins in shared memory (every bin up to 512
+spheres) and the rest with global atomics.
 """
 
 from __future__ import annotations
@@ -60,19 +62,21 @@ def _check_args(tape, lengths, g_color, n):
         raise ValueError(f"need n >= 1 spheres, got {n}")
 
 
-def mega_walk_backward_plain(tape, lengths, g_color, n: int,
-                             dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Plain version on any device: the kernel's reverse walk with torch
+def walk_plain(tape, lengths, g_color, n: int, params, dtype: torch.dtype = torch.float32,
+               ray_grads: bool = False):
+    """The plain reverse walk of K7 and K8 on any device, with torch
     autograd as the VJP.  Depth by depth from the deepest, each live row's
-    inputs (o, d, atten and the winner's parameters) are read off the
-    tape, its output cotangents are the carry from the row after plus
-    g_color at a finishing row, and autograd of local_f_rows gives its
-    input cotangents: (o, d, atten)'s are carried to the row before, the
+    inputs (o, d, atten off the tape, the winner's parameters from
+    params(rows, hit) -> ([m, 9], material [m])) are taken in dtype, its
+    output cotangents are the carry from the row after plus g_color at a
+    finishing row, and autograd of local_f_rows gives its input
+    cotangents: (o, d, atten)'s are carried to the row before, the
     parameters' are summed into the winner's bin (bin n when the row hit
-    nothing).  Like the kernel, each row is linearized at its recorded
-    state, not at a replayed one.  dtype is the arithmetic's precision:
-    float64 evaluates the same walk on the same f32 tape with little
-    rounding, a referee for the f32 versions."""
+    nothing).  Like the kernels, each row is linearized at its recorded
+    state, not at a replayed one.  The carry left at each ray's first row
+    holds its primary-ray cotangents.  dtype is the arithmetic's
+    precision: float64 evaluates the same walk on the same f32 tape with
+    little rounding, a referee for the f32 versions."""
     _check_args(tape, lengths, g_color, n)
     dev = tape.device
     g_pm = torch.zeros(n + 1, N_PARAMS, dtype=dtype, device=dev)
@@ -87,10 +91,11 @@ def mega_walk_backward_plain(tape, lengths, g_color, n: int,
         hit = (flags & F_HIT) != 0
         fin = (flags & F_FIN) != 0
         vals = rows.to(dtype)
+        pv, mt = params(rows, hit)
         x = vals[:, :T_AT + 3].clone().requires_grad_()
-        p = vals[:, T_CW:T_IW + 1].clone().requires_grad_()
+        p = pv.to(dtype).clone().requires_grad_()
         with torch.enable_grad():
-            out = local_f_rows(*x.unbind(-1), *p.unbind(-1), vals[:, T_MT], vals[:, T_RU],
+            out = local_f_rows(*x.unbind(-1), *p.unbind(-1), mt.to(dtype), vals[:, T_RU],
                                vals[:, T_RU + 1], vals[:, T_RU + 2], vals[:, T_U], hit,
                                (flags & F_ACT) != 0)
             cot = torch.cat([carry[rays], torch.where(fin[:, None], g_color[rays].to(dtype),
@@ -102,40 +107,72 @@ def mega_walk_backward_plain(tape, lengths, g_color, n: int,
             carry[rays] = gx
         if gp is not None:
             g_pm.index_add_(0, torch.where(hit, int_col(rows, T_IDX), n).to(torch.int64), gp)
+    if ray_grads:
+        return g_pm, carry[:, :6].contiguous()
     return g_pm
 
 
-def mega_walk_backward_cuda(tape, lengths, g_color, n: int) -> torch.Tensor:
-    """Launch csrc/mega_walk_bwd.cu on the current stream (no sync).  Same
-    arguments and result as mega_walk_backward_plain."""
+def _tape_params(rows, hit):
+    """The winner's parameters and material as recorded on the rows."""
+    return rows[:, T_CW:T_IW + 1], rows[:, T_MT]
+
+
+def mega_walk_backward_plain(tape, lengths, g_color, n: int,
+                             dtype: torch.dtype = torch.float32, ray_grads: bool = False):
+    """Plain version of K8 on any device: walk_plain with the winner's
+    parameters read off the tape."""
+    return walk_plain(tape, lengths, g_color, n, _tape_params, dtype, ray_grads)
+
+
+def check_walk_cuda_args(tape, lengths, g_color, n):
+    """The checks of a reverse-walk kernel's tape operands (CUDA,
+    contiguous, on the tape's device; float32 g_color)."""
     _check_args(tape, lengths, g_color, n)
     for name, x in (("tape", tape), ("lengths", lengths), ("g_color", g_color)):
         if x.device.type != "cuda" or x.device != tape.device or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous on the tape's CUDA device")
     if g_color.dtype != torch.float32:
         raise ValueError("g_color must be float32")
+
+
+def walk_blocks(dev, r: int) -> int:
+    """The grid of a reverse-walk kernel: enough blocks of THREADS rays for
+    every ray, at most BLOCKS_PER_SM per SM (the rest by grid stride)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return min(-(-r // THREADS), sms * BLOCKS_PER_SM)
+
+
+def mega_walk_backward_cuda(tape, lengths, g_color, n: int, ray_grads: bool = False):
+    """Launch csrc/mega_walk_bwd.cu on the current stream (no sync).  Same
+    arguments and result as mega_walk_backward_plain."""
+    check_walk_cuda_args(tape, lengths, g_color, n)
     r = lengths.shape[0]
     dev = tape.device
     g_pm = torch.zeros(n + 1, N_PARAMS, dtype=torch.float32, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = min(-(-r // THREADS), sms * BLOCKS_PER_SM)
+    g_ray = torch.zeros(r, 6, dtype=torch.float32, device=dev) if ray_grads else None
     fn = _build.load("mega_walk_bwd").mega_walk_bwd_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, p, p]
+    fn.argtypes = [p, p, p, i, i, i, p, p, p]
     fn.restype = ctypes.c_int
-    err = fn(tape.data_ptr(), lengths.data_ptr(), g_color.data_ptr(), r, n, blocks,
-             g_pm.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(tape.data_ptr(), lengths.data_ptr(), g_color.data_ptr(), r, n,
+             walk_blocks(dev, r), g_pm.data_ptr(), None if g_ray is None else g_ray.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mega_walk_bwd_launch")
+    if ray_grads:
+        mega_walk_backward_cuda.ray_launches += 1
+        return g_pm, g_ray
     mega_walk_backward_cuda.launches += 1
     return g_pm
 
 
-mega_walk_backward_cuda.launches = 0
+mega_walk_backward_cuda.launches = 0      # without ray grads
+mega_walk_backward_cuda.ray_launches = 0  # with ray grads
 
 
-def mega_walk_backward(tape, lengths, g_color, n: int) -> torch.Tensor:
-    """Scene-parameter cotangents [n + 1, 9]: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+def mega_walk_backward(tape, lengths, g_color, n: int, ray_grads: bool = False):
+    """Scene-parameter cotangents [n + 1, 9] (and with ray_grads the
+    primary-ray cotangents [R, 6]): the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
     if tape.device.type == "cpu":
-        return mega_walk_backward_plain(tape, lengths, g_color, n)
-    return mega_walk_backward_cuda(tape, lengths, g_color, n)
+        return mega_walk_backward_plain(tape, lengths, g_color, n, ray_grads=ray_grads)
+    return mega_walk_backward_cuda(tape, lengths, g_color, n, ray_grads=ray_grads)

@@ -62,6 +62,22 @@ def _port_sweep(scene, o, d, a, inv_a):
     return t.numpy(), w.numpy()
 
 
+def _port_sweep_f64(scene, o, d):
+    """The port's sweep t on the same f32 rays and scene, in float64."""
+    cols, attrs = scene_sweep_arrays(to_port(scene))
+    T = lambda x: torch.from_numpy(np.array(x)).double()
+    dx, dy, dz = T(d[:, 0]), T(d[:, 1]), T(d[:, 2])
+    a = dx * dx + dy * dy + dz * dz
+    t, _ = sweep_winner(T(o[:, 0]), T(o[:, 1]), T(o[:, 2]), dx, dy, dz, a, 1.0 / a,
+                        cols.double(), attrs.double())
+    return t.numpy()
+
+
+# the port's ground-sphere t against float64: measured 4.02e-5 (config2)
+# and 8.95e-5 (final) relative, where float64 takes the same root
+GROUND_F64_RTOL = 1.5e-4
+
+
 @pytest.mark.parametrize("which", ["config2", "final"])
 def test_sweep_winner_matches_jax(which):
     rng = np.random.default_rng(11)
@@ -78,13 +94,28 @@ def test_sweep_winner_matches_jax(which):
     np.testing.assert_array_equal(w_t[A_IDX], wa[A_IDX])
     # On the ground sphere (R = 100 or 1000) c_q = |oc|^2 - r^2 cancels:
     # one f32 ulp of |oc|^2 is 1e-5..0.06, so two correct evaluations that
-    # contract differently into FMAs differ there by ~1e-5 relative in t
-    # (measured 8.0e-6 on config2 and 1.08e-5 on the final scene, both
-    # equally far from the f64 value), so those rays get rtol 3e-5, about
-    # three times the reading.  Every other sphere is held to rtol 1e-6.
+    # contract differently into FMAs differ there by ~1e-5 relative in t,
+    # and both stand up to 5e-5 (config2) and 9e-5 (final) from the same
+    # sweep in float64.  Those rays get rtol 3e-5 against JAX, except where
+    # JAX's own t is more than 3e-5 from float64 (its rounding there
+    # depends on the host's XLA:CPU code: 6 of 779 config2 ground rays, up
+    # to 5.0e-5, on an AVX-512 host), and every ground ray is held to
+    # float64 at GROUND_F64_RTOL.  Every other sphere is held to rtol 1e-6.
     ground = np.asarray(scene.radii)[wa[A_IDX].astype(int)] >= 100.0
     np.testing.assert_allclose(t_t[~ground], t_j[~ground], rtol=1e-6, atol=0)
-    np.testing.assert_allclose(t_t[ground], t_j[ground], rtol=3e-5, atol=0)
+    t_64 = _port_sweep_f64(scene, o, d)
+    d_port, d_jax = (np.abs(t.astype(np.float64) - t_64) / t_64 for t in (t_t, t_j))
+    # a ray that float64 sends to another root or sphere (1 on the final
+    # scene's ground): both f32 sweeps take the same one
+    same_branch = d_jax < 1e-3
+    excused = ground & same_branch & (d_jax > 3e-5)
+    print(f"{which} ground: port-f64 {d_port[ground & same_branch].max():.3g}, jax-f64 "
+          f"{d_jax[ground & same_branch].max():.3g}, port-jax "
+          f"{(np.abs(t_t - t_j) / t_j)[ground].max():.3g}; "
+          f"{int((ground & ~same_branch).sum())} other-branch, {int(excused.sum())} excused")
+    assert d_port[ground & same_branch].max() < GROUND_F64_RTOL
+    keep = ground & ~excused
+    np.testing.assert_allclose(t_t[keep], t_j[keep], rtol=3e-5, atol=0)
     # the gathered attributes equal the MXU-selected ones exactly
     np.testing.assert_array_equal(w_t, wa[:w_t.shape[0]])
 

@@ -8,12 +8,16 @@ import pytest
 import torch
 
 from distributed_raytracer_tpu_torch import (
+    Scene,
     image_loss,
+    make_tape_camera_pose_tracer,
     make_tape_camera_tracer,
     make_tape_camera_walk_tracer,
+    make_tape_tracer,
 )
 from distributed_raytracer_tpu_torch.models import presets
-from distributed_raytracer_tpu_torch.ops.camera import camera_scalar_row
+from distributed_raytracer_tpu_torch.ops.camera import Camera, camera_scalar_row
+from distributed_raytracer_tpu_torch.ops.kernels import mega_bwd_kernel as mbk
 from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
 from distributed_raytracer_tpu_torch.ops.kernels import mega_render_kernel as mrk
 from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_bwd_kernel as wbk
@@ -199,3 +203,121 @@ def test_walk_tracer_gradients_on_card(card):
         assert torch.isfinite(v.grad).all(), k
         assert float(v.grad[8193:].abs().max()) == 0.0, k  # absent from the pack
     assert float(p["albedo"].grad.abs().max()) > 0.0
+
+
+def _col_err(got, want):
+    """Per-column max |got - want| over the column's max |want|."""
+    return float(((got - want).abs().max(dim=0).values
+                  / (want.abs().max(dim=0).values + 1e-8)).max())
+
+
+def _camera_rays(camera, card):
+    pix = torch.arange(camera.num_pixels, device=card)
+    return mrk.camera_rays_host(camera_scalar_row(camera).to(card), pix, pix, 987654,
+                                camera.image_width)
+
+
+@pytest.mark.parametrize("which", ["config2", "final"])
+def test_ray_mode_forward_matches_plain_on_card(card, which):
+    """K6 in ray mode against its plain version, and, fed the rays
+    camera_rays_host makes with rid = pix, against K6 in camera mode: tape
+    and colors bit for bit."""
+    scene = (presets.config2()[0] if which == "config2"
+             else presets.rtiow_final_scene(pad_to=512))
+    camera = presets.final_scene_camera(64).replace(max_depth=8)
+    (cols, attrs, cam_row), kw = _fwd_args(scene, camera, card)
+    o, d = _camera_rays(camera, card)
+    before = mk.mega_forward_cuda.launches
+    got = mk.mega_forward(cols, attrs, o, d, bounce_seed=123456, max_depth=8)
+    assert mk.mega_forward_cuda.launches == before + 1
+    want = mk.mega_forward_plain(cols, attrs, o, d, bounce_seed=123456, max_depth=8)
+    cam_mode = mk.mega_forward_camera(cols, attrs, cam_row, None, **kw)
+    torch.cuda.synchronize()
+    for other in (want, cam_mode):
+        assert torch.equal(got.lengths, other.lengths)
+        assert torch.equal(_written_rows(got), _written_rows(other))
+        assert torch.equal(got.colors, other.colors)
+
+
+def test_mega_backward_matches_plain_on_card(card):
+    """K7 against its plain version (g_pm and the ray cotangents, per
+    column normalized, 1e-4: f32 sums in another order), and against K8
+    with ray grads on the same tape (the same walk, the parameters from
+    the scene instead of the tape)."""
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = presets.final_scene_camera(64).replace(max_depth=8)
+    (cols, attrs, _), _ = _fwd_args(scene, camera, card)
+    o, d = _camera_rays(camera, card)
+    out = mk.mega_forward(cols, attrs, o, d, bounce_seed=123456, max_depth=8)
+    g = torch.randn(camera.num_pixels, 3, generator=torch.Generator().manual_seed(3)).to(card)
+    n = scene.num_spheres
+    before = mbk.mega_backward_cuda.launches
+    got_pm, got_ray = mbk.mega_backward(cols, attrs, out.tape, out.lengths, g, n)
+    assert mbk.mega_backward_cuda.launches == before + 1
+    want_pm, want_ray = mbk.mega_backward_plain(cols, attrs, out.tape, out.lengths, g, n)
+    k8_pm, k8_ray = wbk.mega_walk_backward(out.tape, out.lengths, g, n, ray_grads=True)
+    torch.cuda.synchronize()
+    assert _col_err(got_pm[:n], want_pm[:n]) < 1e-4
+    assert _col_err(got_ray, want_ray) < 1e-4
+    assert _col_err(got_pm[:n], k8_pm[:n]) < 1e-4
+    assert _col_err(got_ray, k8_ray) < 1e-4
+    assert torch.isfinite(got_pm).all() and torch.isfinite(got_ray).all()
+
+
+def test_walk_backward_ray_grads_on_card(card):
+    """K8 with ray grads against its plain version; without them it
+    returns what the plain walk without ray grads returns."""
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = presets.final_scene_camera(64).replace(max_depth=8)
+    args, kw = _fwd_args(scene, camera, card)
+    out = mk.mega_forward_camera(*args, None, **kw)
+    g = torch.randn(camera.num_pixels, 3, generator=torch.Generator().manual_seed(3)).to(card)
+    n = scene.num_spheres
+    before = wbk.mega_walk_backward_cuda.ray_launches
+    got_pm, got_ray = wbk.mega_walk_backward(out.tape, out.lengths, g, n, ray_grads=True)
+    assert wbk.mega_walk_backward_cuda.ray_launches == before + 1
+    want_pm, want_ray = wbk.mega_walk_backward_plain(out.tape, out.lengths, g, n,
+                                                     ray_grads=True)
+    plain = wbk.mega_walk_backward(out.tape, out.lengths, g, n)
+    torch.cuda.synchronize()
+    assert _col_err(got_pm[:n], want_pm[:n]) < 1e-4
+    assert _col_err(got_ray, want_ray) < 1e-4
+    assert _col_err(plain[:n], want_pm[:n]) < 1e-4
+
+
+def test_ray_and_pose_tracers_on_card(card):
+    """Weights carried over as numpy arrays (Scene.from_numpy, the camera
+    by Camera.from_numpy and its row) feed both tracers on the card; their
+    colors agree with the same tracers on the CPU and their gradients are
+    finite, with the launches each path makes."""
+    src = presets.rtiow_final_scene(pad_to=512)
+    scene = Scene.from_numpy(src.to_numpy(), card)
+    cam0 = presets.final_scene_camera(64).replace(max_depth=8)
+    camera = Camera.from_numpy(cam0.to_numpy(), "cpu")
+    o, d = _camera_rays(camera, "cpu")
+    results = {}
+    for dev in (card, torch.device("cpu")):
+        s = scene.to(dev)
+        p = {k: v.clone().requires_grad_() for k, v in s.diff_params().items()}
+        ray_o, ray_d = o.to(dev).requires_grad_(), d.to(dev).requires_grad_()
+        before = (mk.mega_forward_cuda.launches, mbk.mega_backward_cuda.launches)
+        colors = make_tape_tracer(123456, 8, device=dev)(s.with_diff_params(p), ray_o, ray_d)
+        image_loss(colors, torch.zeros_like(colors)).backward()
+        if dev.type == "cuda":
+            assert (mk.mega_forward_cuda.launches, mbk.mega_backward_cuda.launches) == (
+                before[0] + 1, before[1] + 1)
+        row = camera_scalar_row(camera).to(dev).requires_grad_()
+        pose = make_tape_camera_pose_tracer(camera, 123456, 987654, device=dev)
+        before = wbk.mega_walk_backward_cuda.ray_launches
+        pose_colors = pose(s, row)
+        image_loss(pose_colors, torch.zeros_like(pose_colors)).backward()
+        if dev.type == "cuda":
+            assert wbk.mega_walk_backward_cuda.ray_launches == before + 1
+        results[dev.type] = (colors.detach().cpu(), pose_colors.detach().cpu())
+        for t in (*p.values(), ray_o, ray_d, row):
+            assert torch.isfinite(t.grad).all()
+        assert float(row.grad.abs().max()) > 0.0 and float(ray_d.grad.abs().max()) > 0.0
+    for got, want in zip(results["cuda"], results["cpu"]):
+        dif = (got - want).abs()
+        assert float(dif.mean()) < 1.5e-3
+        assert float((dif.max(dim=1).values > 5e-4).float().mean()) <= 0.02

@@ -2,9 +2,11 @@
 package's _local_f_rows (mega_bwd_kernel.py:72) on the random rows of
 tests/test_mega_bwd.py:188-203: all five materials, hit/act mixes.
 
-Bands: values atol 1e-6; the VJP (torch autograd against jax.vjp, seeded
-cotangents) per input, normalized by that input's largest cotangent,
-atol 1e-5 — float32 rounding of two differently ordered reverse sweeps."""
+Bands: values atol 1e-6 against JAX, and within 5e-6 of the same function
+evaluated in float64 (test_local_f_rows_matches_jax says why both); the
+VJP (torch autograd against jax.vjp, seeded cotangents) per input,
+normalized by that input's largest cotangent, atol 1e-5 — float32
+rounding of two differently ordered reverse sweeps."""
 
 import jax
 import jax.numpy as jnp
@@ -53,12 +55,40 @@ def _jax_args(rows):
     return [jnp.asarray(r)[None, :] for r in rows]
 
 
+# the port's f32 values against the same function in float64: measured
+# 2.81e-6 at most (output 5) on the elements where float64 takes the f32
+# branches
+F64_BAND = 5e-6
+# an element that JAX's f32 evaluation puts this far from float64 is one
+# where float64 took another branch (a flipped near_ok, front or
+# refl > u test: 6 to 14 elements per output, 1.1e-2 to 9.5 away)
+OTHER_BRANCH = 1e-3
+
+
 def test_local_f_rows_matches_jax():
+    """The port against JAX at atol 1e-6, except on the elements where
+    JAX's own f32 value is more than 1e-6 from the float64 value of the
+    same function; there the port is held to float64 (F64_BAND).  JAX's
+    rounding there depends on the host's XLA:CPU code (the element of
+    output 3 that JAX puts 2.9e-6 from float64 on an AVX-512 host, the port
+    puts 7.9e-7 from it), so holding the port to JAX alone passed or failed
+    by host.  Where float64 takes another branch, both f32 evaluations
+    take the same one: the 1e-6 band to JAX holds there."""
     rows = _rows()
     want = _local_f_rows(*_jax_args(rows))
     got = local_f_rows(*[torch.from_numpy(r) for r in rows])
-    for k, (g, w) in enumerate(zip(got, want)):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w)[0], atol=1e-6, err_msg=f"output {k}")
+    ref = local_f_rows(*[torch.from_numpy(r).double() if r.dtype == np.float32
+                         else torch.from_numpy(r) for r in rows])
+    for k, (g, w, r) in enumerate(zip(got, want, ref)):
+        g, w, r = g.numpy().astype(np.float64), np.asarray(w)[0].astype(np.float64), r.numpy()
+        d_port, d_jax = np.abs(g - r), np.abs(w - r)
+        same_branch = d_jax < OTHER_BRANCH
+        excused = same_branch & (d_jax > 1e-6)
+        print(f"output {k}: port-f64 {d_port[same_branch].max():.3g}, jax-f64 "
+              f"{d_jax[same_branch].max():.3g}, port-jax {np.abs(g - w).max():.3g}; "
+              f"{int((~same_branch).sum())} other-branch, {int(excused.sum())} excused")
+        assert d_port[same_branch].max() < F64_BAND, (k, d_port[same_branch].max())
+        np.testing.assert_allclose(g[~excused], w[~excused], atol=1e-6, err_msg=f"output {k}")
 
 
 def test_local_f_rows_vjp_matches_jax():

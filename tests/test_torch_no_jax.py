@@ -7,7 +7,11 @@ import sys
 import pytest
 import torch
 
-from distributed_raytracer_tpu_torch import make_tape_camera_tracer
+from distributed_raytracer_tpu_torch import (
+    make_tape_camera_pose_tracer,
+    make_tape_camera_tracer,
+    make_tape_tracer,
+)
 from distributed_raytracer_tpu_torch.ops.camera import make_camera
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -31,7 +35,8 @@ def test_port_imports_no_jax():
     mods = _modules()
     for m in ("cli", "grad.tapegrad", "grad.diff_render", "ops.kernels.local_f",
               "ops.kernels.mega_kernel", "ops.kernels.mega_walk_bwd_kernel", "native",
-              "ops.kernels.culled_kernel", "ops.kernels.mega_walk_kernel"):
+              "ops.kernels.culled_kernel", "ops.kernels.mega_walk_kernel",
+              "ops.kernels.mega_bwd_kernel"):
         assert f"distributed_raytracer_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -63,3 +68,15 @@ def test_tracer_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make_tape_camera_tracer(camera, 1, 2)
+
+
+@pytest.mark.parametrize("factory", ["ray", "pose"])
+def test_ray_and_pose_tracers_default_to_the_card(factory):
+    camera = make_camera(image_width=4)
+    make = ((lambda: make_tape_tracer(1, 2)) if factory == "ray"
+            else (lambda: make_tape_camera_pose_tracer(camera, 1, 2)))
+    if torch.cuda.is_available():
+        make()
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()

@@ -310,7 +310,8 @@ def _jax_walk(out, g, n, jit):
 def test_walk_gap_is_xla_compilation(final_tape):
     """Where the port's walk and JAX's walk kernel part (8.4e-3 of a
     geometric column, test_walk_backward_on_jax_tape): JAX's own walk with
-    its per-row VJP run op by op is the port's walk (measured 4.7e-5), and
+    its per-row VJP run op by op is the port's walk (measured 4.7e-5 to
+    1.55e-4 by host, see below), and
     with the per-row VJP jitted it is JAX's kernel (measured 1.6e-7).  The
     compiled and the op-by-op evaluation of _local_f_rows round the
     grazing rows' disc differently."""
@@ -319,7 +320,24 @@ def test_walk_gap_is_xla_compilation(final_tape):
     tape, lengths = _to_port_tape(out, camera.num_pixels, camera.max_depth)
     port = mega_walk_backward_plain(tape, lengths, torch.from_numpy(g), n).numpy()[:n]
     op_by_op = _jax_walk(out, g, n, jit=False)
-    assert _col_err(port, op_by_op).max() < 1e-4, _col_err(port, op_by_op)
+    # Both against the same walk in float64, per element of g_pm normalized
+    # by its column's max: the 1e-4 band between the two holds on every
+    # element except those that op-by-op JAX itself puts more than 1e-4
+    # from float64 (21 elements on an AVX-512 host, among them the ior of
+    # sphere 484, where JAX's rounding depends on the host's XLA:CPU code:
+    # port and JAX part by 1.55e-4 there, 7.8e-3 and 8.0e-3 from float64);
+    # the port is held to float64 at the bands of
+    # test_walk_backward_on_jax_tape (measured 5.6e-7 albedo, 7.8e-3 ior)
+    exact = mega_walk_backward_plain(tape, lengths, torch.from_numpy(g), n,
+                                     dtype=torch.float64).numpy()[:n]
+    scale = np.abs(exact).max(axis=0) + 1e-8
+    d_port, d_jax = np.abs(port - exact) / scale, np.abs(op_by_op - exact) / scale
+    d_pj = np.abs(port - op_by_op) / (np.abs(op_by_op).max(axis=0) + 1e-8)
+    excused = d_jax > 1e-4
+    print(f"per column, port-f64 {d_port.max(0)}, jax-f64 {d_jax.max(0)}, port-jax "
+          f"{d_pj.max(0)}; {int(excused.sum())} excused")
+    _assert_cols_close(port, exact, 1e-4, 1e-2, "port vs the float64 walk")
+    assert d_pj[~excused].max() < 1e-4, np.where(excused, 0.0, d_pj).max(0)
     compiled = _jax_walk(out, g, n, jit=True)
     assert _col_err(compiled, g_walk[:n]).max() < 1e-6, _col_err(compiled, g_walk[:n])
 
