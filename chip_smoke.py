@@ -11,9 +11,13 @@ the walk engine's two on bench.py's 8,192-sphere field at 1024x576,
 depth 8 (the walk training step, and the progressive render routed past
 512 spheres), then the gradients through rays and the camera pose on the
 final scene (the ray-table tracer on 262,144 rays strided over 1200x675,
-and the pose tracer on all 810,000 pixels, depth 50), and prints one JSON
-line of kernel numbers and, last, one JSON line with the device.  Any failed phase raises, so the exit code is nonzero and no
-result line is printed.  Without a CUDA card it exits with code 2.
+and the pose tracer on all 810,000 pixels, depth 50), then the fused
+wavefront engine (render_progressive(engine="fused"): dense on the final
+scene at 1200x675 depth 50, culled on it and on the 8,192-sphere field at
+1024x576 depth 8, with resume and the CLI), and prints one JSON line of
+kernel numbers and, last, one JSON line with the device.  Any failed
+phase raises, so the exit code is nonzero and no result line is printed.
+Without a CUDA card it exits with code 2.
 
     python3 chip_smoke.py --record out/chip_smoke.json
 
@@ -33,7 +37,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ("mega_render", "mega_forward", "mega_walk_bwd", "mega_walk", "mega_bwd")
+KERNELS = ("mega_render", "mega_forward", "mega_walk_bwd", "mega_walk", "mega_bwd",
+           "fused_bounce")
 SOURCE = "distributed_raytracer_tpu_torch/csrc/{}.cu"
 REPLACES = {
     "mega_render": "distributed_raytracer_tpu/ops/pallas/mega_render_kernel.py:179",
@@ -41,23 +46,35 @@ REPLACES = {
     "mega_walk_bwd": "distributed_raytracer_tpu/ops/pallas/mega_walk_bwd_kernel.py:59",
     "mega_walk": "distributed_raytracer_tpu/ops/pallas/mega_walk_kernel.py:198",
     "mega_bwd": "distributed_raytracer_tpu/ops/pallas/mega_bwd_kernel.py:215",
+    "fused_bounce": "distributed_raytracer_tpu/ops/pallas/bounce_kernel.py:306",
+}
+# rows whose source holds more than one TPU kernel: fused_bounce.cu is K10
+# (dense) and K14 (the walk instantiation)
+ROW_REPLACES = {
+    "culled_fused_bounce": "distributed_raytracer_tpu/ops/pallas/culled_bounce_kernel.py:136",
+    "culled_fused_bounce_field":
+        "distributed_raytracer_tpu/ops/pallas/culled_bounce_kernel.py:136",
 }
 # each row of the kernels line and the source it launches: K9 has two
 # instantiations (render, pallas_call mega_walk_kernel.py:602; record,
 # :734), K8 two shapes (the dense tracer's 512 spheres, whose bins all sit
 # in shared memory; the walk's 8,448 slots, most of whose bins go to g_pm
 # by global atomics), K6 two modes (camera; ray, mega_forward :512), and K8
-# two instantiations (without and with ray grads)
+# two instantiations (without and with ray grads); K14 two scenes (the
+# final scene in 5 chunks of 128, the 8,192-sphere field in 65)
 ROW_SOURCE = {"mega_forward": "mega_forward", "mega_walk_bwd": "mega_walk_bwd",
               "mega_walk": "mega_walk", "mega_walk_record": "mega_walk",
               "mega_walk_bwd_global": "mega_walk_bwd", "mega_forward_ray": "mega_forward",
-              "mega_bwd": "mega_bwd", "mega_walk_bwd_rays": "mega_walk_bwd"}
+              "mega_bwd": "mega_bwd", "mega_walk_bwd_rays": "mega_walk_bwd",
+              "fused_bounce": "fused_bounce", "culled_fused_bounce": "fused_bounce",
+              "culled_fused_bounce_field": "fused_bounce"}
 NO_LIBRARY = {  # why library_ms is null
     "mega_render": "no single PyTorch call computes a path-traced image sample",
     "mega_forward": "no single PyTorch call computes a recording path-traced sample",
     "mega_walk_bwd": "no single PyTorch call computes the reverse walk of a bounce tape",
     "mega_walk": "no single PyTorch call computes a path-traced sample with a chunk walk",
     "mega_bwd": "no single PyTorch call computes the reverse walk of a bounce tape",
+    "fused_bounce": "no single PyTorch call computes a shaded bounce",
 }
 FP32_LANES_PER_SM = 128      # Hopper SM: 4 partitions x 32 FP32 lanes
 # FP32 operations of one ray x sphere test in the sweep (bounce.cuh
@@ -104,6 +121,12 @@ RAY_CALM_BAND = 1e-3
 # the ray-table tracer's shape (scripts/bench_megabwd.py:14-19): this many
 # rays strided over the 1200x675 image, depth 50
 RAY_TRACER_RAYS = 262144
+# the fused engine's culled chunk (cli.py: --accel culled on the fused engine)
+FUSED_CHUNK = 128
+# bytes of one lane of a fused bounce: o and d in (24), active (1) and the
+# ray id (4); next o and d, attenuation, color and the unit draw out (60),
+# finished, idx and u (12) and hit (1)
+LANE_BYTES = 102
 
 
 class SmokeFailure(RuntimeError):
@@ -961,6 +984,285 @@ def check_ray_pose_path(dev, final, cam_main) -> dict:
     }
 
 
+class EngineBounces:
+    """Wraps the fused engine's bounce (render/wavefront.py's `name`,
+    fused_bounce or culled_fused_bounce) for one engine run: adds each
+    call's counters to `stats` and keeps each call's inputs (the engine
+    makes new tensors each bounce, so a reference is a copy), so that the
+    run's launches can be replayed."""
+
+    def __init__(self, name: str, device, mid: int = 120):
+        from distributed_raytracer_tpu_torch.render import wavefront
+
+        self.module, self.name, self.mid = wavefront, name, mid
+        self.inputs = []
+        self.stats = torch.zeros(4, dtype=torch.int64, device=device)
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+    def __call__(self, o, d, live, lane_ray, scene, seed, **kw):
+        self.inputs.append((o, d, live, lane_ray, seed))
+        return self.real(o, d, live, lane_ray, scene, seed, stats=self.stats)
+
+    def replay_ms(self, kernel) -> float:
+        """The card time of the run's launches: each replayed on its
+        inputs, back to back, between two CUDA events (in the run itself
+        the card waits for the host between launches), each output dropped
+        at once so the allocator reuses its memory."""
+        def replay():
+            for args in self.inputs:
+                kernel(*args)
+
+        kernel(*self.inputs[0])  # warm the allocator
+        return cuda_ms(replay, 1)
+
+
+def engine_ops_per_block(dev, scene, cam, culled=None) -> float:
+    """PyTorch operations the fused engine's host loop issues per block of
+    two bounces (refill, the glue around each launch, the drain), counted
+    by a dispatch mode over a 1-spp render of cam (the kernel launches
+    themselves are not PyTorch operations)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from distributed_raytracer_tpu_torch.render.wavefront import render_wavefront_sum_fused
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    name = "fused_bounce" if culled is None else "culled_fused_bounce"
+    with EngineBounces(name, dev) as rec, Count():
+        render_wavefront_sum_fused(scene, cam, 1, BOUNCE_SEED, CAM_SEED, culled=culled, device=dev)
+    return Count.ops / (len(rec.inputs) / 2)
+
+
+def bounce_cost(stats, n_live: int, finite_chunks: int, scene_bytes: int) -> dict:
+    """The FP32 operations and bytes fused bounces with these counters
+    need: the live-sphere tests at K5's counts (dense: every lane tests
+    every live sphere; the walk: the admitted chunks' slot tests), the
+    walk's bound test of every finite-bound chunk for every lane, the lanes
+    read and written once and the scene read once."""
+    lanes, admitted, tests, near = (int(x) for x in stats.tolist())
+    live_tests = lanes * n_live if finite_chunks == 0 else tests
+    flops = (live_tests * FLOPS_PER_TEST + near * FLOPS_PER_NEAR_TEST
+             + lanes * finite_chunks * FLOPS_PER_BOUND_TEST)
+    return dict(lanes=lanes, admitted=admitted, tests=live_tests, near=near, flops=flops,
+                bytes=lanes * LANE_BYTES + scene_bytes)
+
+
+def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float) -> dict:
+    """Phases 19-23: the fused wavefront engine.  render_progressive
+    (engine="fused") at full width, dense (K10) on the final scene and
+    culled (K14) on it and on the 8,192-sphere field, each run wrapped to
+    keep its pool batches (its launches then replayed for their card time);
+    K10 and K14 against their plain versions on three of those batches;
+    the engine with a pool holding every ray against K5 and K9; resume;
+    the CLI."""
+    from distributed_raytracer_tpu_torch.ops.kernels import bounce_kernel as bk
+    from distributed_raytracer_tpu_torch.ops.kernels import culled_bounce_kernel as cb
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_kernel as mwk
+    from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import build_culled_scene
+    from distributed_raytracer_tpu_torch.render.progressive import AccumState, render_progressive
+    from distributed_raytracer_tpu_torch.render.wavefront import (
+        DEFAULT_POOL,
+        render_wavefront_sum_fused,
+    )
+
+    def drive(label, name, counter, kernel, scene, cam, **kw):
+        """One engine run through render_progressive at 4 spp, the launch
+        count set to 0 before it and read after, its launches then replayed
+        through kernel for their card time; returns its numbers and the
+        wrapper."""
+        counter.launches = 0
+        with EngineBounces(name, dev) as rec:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state = render_progressive(scene, cam, seed=0, spp=4, batch=4, engine="fused", **kw)
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3
+        launches = counter.launches
+        kern = rec.replay_ms(kernel)
+        n = cam.num_pixels
+        img = state.mean_image()
+        require(img.shape == (cam.image_height, cam.image_width, 3) and np.isfinite(img).all(),
+                f"{label}: image is not finite")
+        require(launches >= 1 and launches == len(rec.inputs),
+                f"{label}: the engine did not run its kernel ({launches} launches, "
+                f"{len(rec.inputs)} bounces)")
+        top = img[0, cam.image_width // 2]
+        require(top[2] > top[0], f"{label}: top-center pixel not bluish: {top}")
+        run = dict(ms_per_sample=wall / 4, rays_per_s=4 * n / wall * 1e3,
+                   launches=launches, launches_per_sample=launches / 4,
+                   kernel_ms=kern, ms_per_launch=kern / launches,
+                   host_share=(wall - kern) / wall, stats=rec.stats.tolist(), tag=state.engine)
+        log(f"[fused] {label}: {run['ms_per_sample']:.2f} ms/sample wall, "
+            f"{run['rays_per_s']:,.0f} rays/s; {launches} launches "
+            f"({run['launches_per_sample']:.1f} per sample), {run['ms_per_launch']:.4f} ms per "
+            f"launch (replayed), kernels {kern:.1f} ms of {wall:.1f} ms: host share "
+            f"{run['host_share']:.1%}; counters {run['stats']} ({', '.join(bk.STATS)}); "
+            f"top-center pixel {top.tolist()}")
+        return run, rec
+
+    def hold(label, kernel, plain, rec):
+        """The kernel against its plain version on the run's first, middle
+        and last pool batch: every output and the counters bit for bit.
+        Returns (max abs err, kernel ms, plain ms, counters) at the middle
+        batch, a full pool in the steady state."""
+        require(rec.mid < len(rec.inputs), f"{label}: the run took {len(rec.inputs)} bounces, "
+                f"fewer than {rec.mid + 1}")
+        err, plain_ms = 0.0, {}
+        for at in (0, rec.mid, len(rec.inputs) - 1):
+            o, d, live, lane_ray, seed = rec.inputs[at]
+            st_k, st_p = (torch.zeros(4, dtype=torch.int64, device=dev) for _ in range(2))
+            got = kernel(o, d, live, lane_ray, seed, stats=st_k)
+            want, plain_ms[at] = cuda_timed(lambda: plain(o, d, live, lane_ray, seed,
+                                                          stats=st_p))
+            diff = max(float((getattr(got, k).float() - getattr(want, k).float()).abs().max())
+                       for k in bk.BounceOut._fields)
+            same = all(torch.equal(getattr(got, k), getattr(want, k))
+                       for k in bk.BounceOut._fields)
+            log(f"[fused] {label}, bounce {at} ({int(live.sum()):,} of {live.numel():,} lanes "
+                f"live): kernel vs plain max abs err {diff:.3e}, all nine outputs equal bit for "
+                f"bit {same}, counters kernel {st_k.tolist()} plain {st_p.tolist()}; plain "
+                f"{plain_ms[at]:.1f} ms")
+            require(same, f"{label}: the kernel differs from its plain version")
+            require(torch.equal(st_k, st_p), f"{label}: counters differ from the plain count")
+            err = max(err, diff)
+        o, d, live, lane_ray, seed = rec.inputs[rec.mid]
+        stats = torch.zeros(4, dtype=torch.int64, device=dev)
+        kernel(o, d, live, lane_ray, seed, stats=stats)
+        ms = cuda_ms(lambda: kernel(o, d, live, lane_ray, seed), 20)
+        return err, ms, plain_ms[rec.mid], stats
+
+    def row(run, check, n_live, finite, scene_bytes):
+        err, ms, plain_ms, stats = check
+        cost = bounce_cost(stats, n_live, finite, scene_bytes)
+        whole = bounce_cost(torch.tensor(run["stats"]), n_live, finite,
+                            scene_bytes * run["launches"])
+        log(f"[time] {ms:.4f} ms per launch at a full pool ({cost['lanes']:,} lanes, "
+            f"{cost['tests']:,} live-sphere tests, {cost['near']:,} with disc >= 0), bound "
+            f"{cost['flops'] / peak * 1e3:.4f} ms; the run's {run['launches']} launches "
+            f"{run['kernel_ms']:.1f} ms against a bound of {whole['flops'] / peak * 1e3:.2f} ms")
+        return dict(launches=run["launches"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    flops=cost["flops"], bytes=cost["bytes"])
+
+    n_main = cam_main.num_pixels
+    live_final = int((final.radii > 0).sum())
+
+    # --- phase 19: dense fused engine at the main path, then K10 against plain ---
+    arrays = bk.fused_scene_arrays(final.to(dev))
+    k10_pair = (lambda *a, **k: bk.fused_bounce_cuda(*a[:4], arrays, *a[4:], **k),
+                lambda *a, **k: bk.fused_bounce_plain(*a[:4], arrays, *a[4:], **k))
+    run_d, rec_d = drive("dense, final 1200x675 depth 50 spp 4, pool 16384", "fused_bounce",
+                         bk.fused_bounce_cuda, k10_pair[0], final, cam_main)
+    require(run_d["tag"] == "fused", run_d["tag"])
+    run_d["ops_per_block"] = engine_ops_per_block(dev, final, cam_main)
+    log(f"[fused] the host loop issues {run_d['ops_per_block']:.1f} PyTorch operations per "
+        f"block of two bounces (1 spp at 1200x675, counted by a dispatch mode); "
+        f"{run_d['ms_per_sample'] / run_d['launches_per_sample'] * 2:.3f} ms wall per block "
+        f"in the run")
+    chk_d = hold("K10 final", *k10_pair, rec_d)
+    scene_bytes_d = final.num_spheres * 15 * 4
+    k10 = row(run_d, chk_d, live_final, 0, scene_bytes_d)
+    del rec_d
+
+    # --- phase 20: culled fused engine on the final scene and on the field, then K14 ---
+    def culled_pair(pack):
+        return (lambda *a, **k: cb.culled_fused_bounce_cuda(*a[:4], pack, *a[4:], **k),
+                lambda *a, **k: cb.culled_fused_bounce_plain(*a[:4], pack, *a[4:], **k))
+
+    culled_f = build_culled_scene(final, chunk=FUSED_CHUNK)
+    pack_f = cb.build_culled_pack(culled_f).to(dev)
+    run_c, rec_c = drive("culled, final 1200x675 depth 50 spp 4, tiled", "culled_fused_bounce",
+                         cb.culled_fused_bounce_cuda, culled_pair(pack_f)[0], culled_f.scene,
+                         cam_main, culled=culled_f, ray_order="tiled")
+    require(run_c["tag"] == "fused+culled", run_c["tag"])
+
+    def pack_bytes(pack):
+        return pack.n_slots * 15 * 4 + pack.n_chunks * (16 + 4)
+
+    def finite(pack):
+        return int(torch.isfinite(pack.bounds[:pack.n_chunks, 3]).sum())
+
+    chk_c = hold("K14 final", *culled_pair(pack_f), rec_c)
+    k14 = row(run_c, chk_c, live_final, finite(pack_f), pack_bytes(pack_f))
+    del rec_c
+    field = presets.random_sphere_field(8192, seed=5, extent=30.0)
+    cam_big = walk_camera(presets, 1024)
+    culled_w = build_culled_scene(field, chunk=FUSED_CHUNK)
+    pack_w = cb.build_culled_pack(culled_w).to(dev)
+    log(f"[fused] field of {field.num_spheres} spheres: {pack_w.n_chunks} chunks of "
+        f"{FUSED_CHUNK}, {pack_w.n_slots} slots, {pack_w.n_chunks - finite(pack_w)} always swept")
+    run_w, rec_w = drive("culled, field 1024x576 depth 8 spp 4, tiled", "culled_fused_bounce",
+                         cb.culled_fused_bounce_cuda, culled_pair(pack_w)[0], culled_w.scene,
+                         cam_big, culled=culled_w, ray_order="tiled")
+    chk_w = hold("K14 field", *culled_pair(pack_w), rec_w)
+    k14w = row(run_w, chk_w, int((field.radii > 0).sum()), finite(pack_w), pack_bytes(pack_w))
+    del rec_w
+
+    # --- phase 21: a pool holding every ray equals K5 (dense) and K9 (culled) ---
+    t0 = time.time()
+    full = render_wavefront_sum_fused(final, cam_main, 1, BOUNCE_SEED, CAM_SEED,
+                                      pool_size=n_main, device=dev)
+    full_c = render_wavefront_sum_fused(final, cam_main, 1, BOUNCE_SEED, CAM_SEED,
+                                        pool_size=n_main, culled=culled_f, device=dev)
+    walk = mwk.render_wavefront_sum_mega_walk(
+        mwk.build_walk_pack(culled_f, cam_main.center.cpu().numpy()), cam_main, 1, BOUNCE_SEED,
+        CAM_SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"[fused] pool of {n_main:,} (every ray of 1 spp), final 1200x675 depth 50: dense == K5 "
+        f"{torch.equal(full, k5_main)} (max abs err {float((full - k5_main).abs().max()):.3e}), "
+        f"culled == K9 over the culled scene {torch.equal(full_c, walk)} (max abs err "
+        f"{float((full_c - walk).abs().max()):.3e}); {time.time() - t0:.1f} s")
+    require(torch.equal(full, k5_main), "the dense fused engine differs from K5 at a full pool")
+    require(torch.equal(full_c, walk), "the culled fused engine differs from K9 at a full pool")
+    del full, full_c, walk
+
+    # --- phase 22: resume on the fused engine (culled, tiled, re-sorted) ---
+    ckpt = ROOT / "build" / "smoke_fused_ckpt.npz"
+    ckpt.parent.mkdir(exist_ok=True)
+    if ckpt.exists():
+        ckpt.unlink()
+    kw = dict(seed=7, batch=2, engine="fused", culled=culled_f, ray_order="tiled",
+              resort_every=4)
+    whole = render_progressive(culled_f.scene, cam_main, spp=4, **kw)
+    render_progressive(culled_f.scene, cam_main, spp=2, checkpoint_path=str(ckpt), **kw)
+    require(AccumState.load(str(ckpt)).samples_done == 2, "checkpoint does not hold 2 samples")
+    resumed = render_progressive(culled_f.scene, cam_main, spp=4, checkpoint_path=str(ckpt), **kw)
+    require(resumed.samples_done == 4 and np.array_equal(resumed.raw_sum, whole.raw_sum),
+            "the fused engine's resume is not bit-identical")
+    log("[fused] resumed 2+2 spp (culled, tiled, re-sorted every 4) equals the uninterrupted 4 "
+        "spp render bit for bit")
+
+    # --- phase 23: the CLI on the fused engine with the culled scene ---
+    out_ppm = ROOT / "build" / "smoke_fused.ppm"
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "distributed_raytracer_tpu_torch.cli", "render", "--config",
+         "config5", "--spp", "2", "--engine", "fused", "--accel", "culled", "--resort", "8",
+         "--out", str(out_ppm)], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    log(f"[cli] fused+culled exit {r.returncode} in {time.time() - t0:.1f} s: "
+        f"{r.stderr.strip().splitlines()[-1] if r.stderr.strip() else ''}")
+    require(r.returncode == 0, r.stderr[-4000:])
+    from distributed_raytracer_tpu_torch.render.image import read_ppm
+
+    require(read_ppm(str(out_ppm)).shape == (675, 1200, 3), "CLI PPM is not 1200x675")
+
+    return {
+        "fused_bounce": k10, "culled_fused_bounce": k14, "culled_fused_bounce_field": k14w,
+        "record": dict(pool=DEFAULT_POOL, dense=run_d, culled=run_c, field=run_w),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, help="write the run's numbers to this JSON file")
@@ -1090,6 +1392,8 @@ def main() -> int:
     # --- phases 15-18: gradients through rays and the camera pose (K6 ray mode, K7,
     # K8 with ray grads) ---
     rays = check_ray_pose_path(dev, final, cam_main)
+    # --- phases 19-23: the fused wavefront engine (K10, K14) ---
+    fused = check_fused_path(dev, presets, final, cam_main, k, peak)
 
     # --- phase 9: the kernel line, then the device line last ---
     # K5 at the main-path shape traced the rays K6 recorded (sample 0, the
@@ -1106,12 +1410,15 @@ def main() -> int:
     )]
     for name, g in [(n, grad[n]) for n in ("mega_forward", "mega_walk_bwd")] + [
             (n, walk[n]) for n in ("mega_walk", "mega_walk_record", "mega_walk_bwd_global")] + [
-            (n, rays[n]) for n in ("mega_forward_ray", "mega_bwd", "mega_walk_bwd_rays")]:
+            (n, rays[n]) for n in ("mega_forward_ray", "mega_bwd", "mega_walk_bwd_rays")] + [
+            (n, fused[n]) for n in ("fused_bounce", "culled_fused_bounce",
+                                    "culled_fused_bounce_field")]:
         src = ROW_SOURCE[name]
         ops_s = g["flops"] / peak
         bytes_s = g["bytes"] / HBM_BYTES_PER_S
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE.format(src), replaces=REPLACES[src],
+            name=name, route="cuda", source=SOURCE.format(src),
+            replaces=ROW_REPLACES.get(name, REPLACES[src]),
             launches=g["launches"], max_abs_err=g["max_abs_err"], ms=g["ms"],
             plain_ms=g["plain_ms"], bound_ms=max(ops_s, bytes_s) * 1e3,
             bound_by="operations" if ops_s >= bytes_s else "bytes", library_ms=None,
@@ -1126,6 +1433,7 @@ def main() -> int:
         record = dict(card=smi, kernels=kernels, mean_bounces_per_ray=kb / n_pix,
                       main_path_ms_per_sample=wall * 1e3 / 4, gradient_path=grad["record"],
                       walk_path=walk["record"], ray_pose_path=rays["record"],
+                      fused_path=fused["record"],
                       seconds=time.time() - t_start)
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

@@ -2,9 +2,14 @@
 
     python -m distributed_raytracer_tpu_torch.cli render --config config5 --spp 4 --out out.ppm
 
-`render` is the progressive renderer on the mega engine, with
-checkpoint/resume.  It runs on the CUDA card; --cpu runs the plain
-PyTorch version on the CPU instead.
+`render` is the progressive renderer, with checkpoint/resume, on the mega
+engine (the default) or the fused wavefront engine (--engine fused);
+--accel culled renders over the Morton-chunked CulledScene (chunks of 256
+on the mega engine, 128 on the fused one, whose rays then stream in tiles
+and may be re-sorted with --resort K).  It runs on the CUDA card; --cpu
+runs the plain PyTorch versions on the CPU instead.
+
+    python -m distributed_raytracer_tpu_torch.cli render --engine fused --accel culled --cpu
 """
 
 from __future__ import annotations
@@ -44,23 +49,30 @@ def cmd_render(args):
     scene, cam = _load(args)
     out = args.out or f"{args.config}.ppm"
     device = "cpu" if args.cpu else None
+    culled = None
+    if args.accel == "culled":
+        from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import build_culled_scene
+
+        culled = build_culled_scene(scene, chunk=256 if args.engine == "mega" else 128)
+        scene = culled.scene  # the reordered scene the culled engines trace
     t0 = time.time()
 
     def progress(state):
         el = time.time() - t0
         print(
             f"sample {state.samples_done}/{cam.samples_per_pixel} "
-            f"({cam.num_pixels * state.samples_done / el:,.0f} rays/s) [mega]",
+            f"({cam.num_pixels * state.samples_done / el:,.0f} rays/s) [{args.engine}]",
             file=sys.stderr,
         )
 
     state = render_progressive(
         scene, cam, seed=args.seed, spp=cam.samples_per_pixel, batch=args.batch,
         checkpoint_path=args.checkpoint, resume=not args.no_resume,
-        progress_cb=progress, engine="mega", device=device,
+        progress_cb=progress, engine=args.engine, device=device, culled=culled,
+        ray_order="tiled" if culled is not None else "row", resort_every=args.resort,
     )
     write_ppm(out, state.mean_image())
-    print(f"wrote {out} [engine=mega, device={'cpu' if args.cpu else 'cuda'}]",
+    print(f"wrote {out} [engine={state.engine}, device={'cpu' if args.cpu else 'cuda'}]",
           file=sys.stderr)
 
 
@@ -76,6 +88,15 @@ def main(argv=None):
     p.add_argument("--out", default=None, help="output .ppm path")
     p.add_argument("--checkpoint", default=None, help="checkpoint path for resume")
     p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--engine", choices=["mega", "fused"], default="mega",
+                   help="mega = one kernel launch per image sample; fused = the wavefront "
+                        "engine, one fused bounce launch per bounce of a ray pool")
+    p.add_argument("--accel", choices=["none", "culled"], default="none",
+                   help="culled = render over Morton chunks with bounding spheres, each "
+                        "ray sweeping only the chunks it can still hit")
+    p.add_argument("--resort", type=int, default=0, metavar="K",
+                   help="re-sort the fused engine's lanes every K bounces (--accel culled; "
+                        "0 = off)")
     p.add_argument("--cpu", action="store_true",
                    help="run the plain PyTorch version on the CPU")
     p.set_defaults(fn=cmd_render)

@@ -74,13 +74,8 @@ __device__ __forceinline__ float sweep_winner(const float4* sph, int n, float ox
   return best;
 }
 
-// The unit-vector draw (Box-Muller gaussians, normalized) of one bounce,
-// keyed (rid, seed, 0..3).
-__device__ __forceinline__ void unit_draw(uint32_t rid, uint32_t seed, float ru[3]) {
-  const float u1 = hash_u01(rid, seed, 0u);
-  const float u2 = hash_u01(rid, seed, 1u);
-  const float u3 = hash_u01(rid, seed, 2u);
-  const float u4 = hash_u01(rid, seed, 3u);
+// The unit vector (Box-Muller gaussians, normalized) of four uniforms.
+__device__ __forceinline__ void unit_from(float u1, float u2, float u3, float u4, float ru[3]) {
   const float rad1 = sqrtf(-2.0f * logf(u1));
   const float g1 = rad1 * cosf(DR_TWO_PI * u2);
   const float g2 = rad1 * sinf(DR_TWO_PI * u2);
@@ -91,27 +86,38 @@ __device__ __forceinline__ void unit_draw(uint32_t rid, uint32_t seed, float ru[
   ru[2] = g3 * gn;
 }
 
+// The unit-vector draw of one bounce, keyed (rid, seed, 0..3).
+__device__ __forceinline__ void unit_draw(uint32_t rid, uint32_t seed, float ru[3]) {
+  unit_from(hash_u01(rid, seed, 0u), hash_u01(rid, seed, 1u), hash_u01(rid, seed, 2u),
+            hash_u01(rid, seed, 3u), ru);
+}
+
+// All four draws of one bounce, as DRAWN shading takes them: the unit
+// vector (rux, ruy, ruz) and the dielectric's choice u.
+__device__ __forceinline__ void bounce_draws(uint32_t rid, uint32_t seed, float rec[4]) {
+  unit_draw(rid, seed, rec);
+  rec[3] = hash_u01(rid, seed, 4u);
+}
+
 // Shades one ray against the winner (index bi; its center and radius^2
 // sc.sphere(bi), its attributes sc.attr(ATT_*, bi), trace.cuh's scene
 // accessors).  On return either the ray finished (true; its terminal color in
 // co: sky on a miss, black when absorbed) or it scattered (false; o and d
 // hold the next ray, at the attenuation of this bounce).
 //
-// RECORD (the recording forwards, csrc/mega_forward.cu and the record
-// instantiation of csrc/mega_walk.cu) also returns the
-// bounce's four draws in rec (rux, ruy, ruz, u_choice), computed for every
-// ray whatever its material, as the JAX vector code computes them for
-// every lane, so the tape can be held against JAX's.  The draws are pure
-// functions of (rid, seed), so both instantiations compute the same
-// values; RECORD = false is the mega render kernel's shade unchanged.
-template <bool RECORD, class Scene>
+// DRAWN: the caller drew the bounce's four numbers into rec (rux, ruy,
+// ruz, u_choice) for every ray whatever its material, as the JAX vector
+// code draws them for every lane: the recording forwards
+// (csrc/mega_forward.cu and the record instantiation of csrc/mega_walk.cu,
+// whose tape holds them, with bounce_draws) and the fused bounce
+// (csrc/fused_bounce.cu, which returns them and may be given them).  The
+// draws are pure functions of (rid, seed), so both instantiations compute
+// the same values; DRAWN = false draws what its branch needs itself (the
+// render kernels).
+template <bool DRAWN, class Scene>
 __device__ __forceinline__ bool shade(float o[3], float d[3], float a, float t,
                                       const Scene& sc, int bi, uint32_t rid, uint32_t seed,
-                                      float at[3], float co[3], float rec[4] = nullptr) {
-  if (RECORD) {
-    unit_draw(rid, seed, rec);
-    rec[3] = hash_u01(rid, seed, 4u);
-  }
+                                      float at[3], float co[3], const float rec[4] = nullptr) {
   const float dinv = rsqrtf(a);
   if (!(t < DR_BIG * 0.5f)) {  // miss: the sky gradient
     const float uy_n = d[1] * dinv;
@@ -148,7 +154,7 @@ __device__ __forceinline__ bool shade(float o[3], float d[3], float a, float t,
   }
   if (mt == 2.0f) {  // DIELECTRIC
     const float wio = sc.attr(ATT_IO, bi);
-    const float u_choice = RECORD ? rec[3] : hash_u01(rid, seed, 4u);
+    const float u_choice = DRAWN ? rec[3] : hash_u01(rid, seed, 4u);
     const float ior = wio > 0.0f ? wio : 1.0f;
     const float ri = front ? 1.0f / ior : ior;
     const float ux = d[0] * dinv, uy = d[1] * dinv, uz = d[2] * dinv;
@@ -187,7 +193,7 @@ __device__ __forceinline__ bool shade(float o[3], float d[3], float a, float t,
   float ndx = d[0], ndy = d[1], ndz = d[2];
   if (mt == 0.0f || mt == 1.0f) {
     float ru[3];
-    if (RECORD) {
+    if (DRAWN) {
       ru[0] = rec[0];
       ru[1] = rec[1];
       ru[2] = rec[2];

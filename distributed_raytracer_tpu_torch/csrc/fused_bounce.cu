@@ -1,0 +1,248 @@
+// The fused bounce: one bounce (closest hit, then shading) of every lane
+// of the wavefront engine's ray pool, in one launch.
+//
+// Replaces two kernels of the JAX package, as two instantiations of one
+// kernel over a scene accessor:
+//
+//   K10 distributed_raytracer_tpu/ops/pallas/bounce_kernel.py::
+//     _bounce_kernel (:306; pallas_call :529 in fused_bounce_rows :464):
+//     the dense scene.  Up to MAX_SPHERES spheres it is staged in shared
+//     memory (ResidentScene's layout); above, the threads read it from
+//     global memory (L2-resident), every sphere swept.
+//   K14 distributed_raytracer_tpu/ops/pallas/culled_bounce_kernel.py::
+//     _culled_bounce_kernel (:136; pallas_call :355 in
+//     _culled_fused_bounce_impl :305): the culled scene, walked chunk by
+//     chunk (trace.cuh's WalkScene) with a conservative per-ray bound test
+//     against the ray's best t so far.
+//
+// What they compute is JAX's BounceOut for each lane: the next origin and
+// direction, the bounce's attenuation, the terminal color (sky on a miss,
+// black when absorbed), the finished flag, the winner's index, whether the
+// ray hit (before the active mask), and the four draws used.  An inactive
+// lane is swept (its index and hit are reported) but not shaded: o and d
+// pass through, attenuation 1, color 0, finished 0.  Every draw is the
+// (ray id, seed)-keyed hash, d = 0..4 (culled_bounce_kernel.py:278); on
+// the TPU K10 drew from the on-core generator instead, which has no
+// counterpart here, so the port keys K10 exactly like K14.  A caller (a
+// test) may hand in the five uniforms instead.
+//
+// What is not carried over is the TPU blocking: the (ray block x sphere
+// chunk) grid and its carried winner (a thread loops over the spheres),
+// the bf16 hi/mid/lo planes and the MXU one-hot select (the winner's f32
+// attributes are read directly), K14's scalar-prefetched per-block visit
+// order, its group-of-8 flag bitmasks and its double-buffered chunk DMA.
+// K14 walks the culled scene's chunks in the scene's own order (the
+// always-swept big chunks, then Morton order), so its winner is the dense
+// argmin over the culled scene, ties included: K10 on that scene returns
+// the same lanes bit for bit.
+//
+// Design: one thread per lane, the bounce loop's pieces of trace.cuh and
+// bounce.cuh (sweep through the accessor, shade<DRAWN> with the draws made
+// first).  Each launch also counts, when given a counter array, the lanes,
+// the chunks swept (K10: one per lane), the sphere tests and the tests
+// whose discriminant is not negative.
+//
+// Bound: FP32 throughput in the sweep, as K5 (18 operations a live-sphere
+// test, 8 more when the discriminant is not negative; for K14 also 25 a
+// finite chunk bound test), counted by chip_smoke.py from the counters.
+// Bytes are the pool's ray state read and written once (about 130 B a
+// lane) and the scene.  Known costs: at the engine's pool of 16,384 lanes
+// a launch fills about four warps of each SM, so the sweep's latency is
+// exposed, and the engine's host loop (refill, drain, one sync per block)
+// sets the pace more than the kernel does.
+//
+// Built with -fmad=false (ops/kernels/_build.py), so it agrees with its
+// plain versions, ops/kernels/bounce_kernel.py::fused_bounce_plain and
+// ops/kernels/culled_bounce_kernel.py::culled_fused_bounce_plain.
+#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "trace.cuh"
+
+#define THREADS 128
+
+// The lanes in and out, [R] rows, xyz interleaved as [R, 3].
+struct Lanes {
+  const float* o;        // [R, 3]
+  const float* d;        // [R, 3]
+  const uint8_t* act;    // [R] bool
+  const int* rid;        // [R] global ray id: the draws' key
+  const float* draws;    // [5, R] given uniforms (u1, u2, u3, u4, u_choice), or null
+  uint32_t seed;
+  int R;
+  float* new_o;          // [R, 3]
+  float* new_d;          // [R, 3]
+  float* atten;          // [R, 3]
+  float* color;          // [R, 3]
+  int* finished;         // [R]
+  int* idx;              // [R]
+  uint8_t* hit;          // [R] bool
+  float* ruv;            // [R, 3]
+  float* u;              // [R]
+};
+
+// The dense scene, all n spheres swept: in shared memory (staged, attribute
+// rows MAX_SPHERES apart) or in global memory (rows n apart).  Counts the
+// sweeps, the tests and the tests with disc >= 0.
+struct DenseScene {
+  const float4* sph;  // [n]
+  const float* att;   // [ATT_ROWS, stride]
+  int stride, n;
+  unsigned long long admitted, tests, near_tests;
+
+  __device__ __forceinline__ float4 sphere(int j) const { return sph[j]; }
+  __device__ __forceinline__ float attr(int row, int j) const { return att[row * stride + j]; }
+  __device__ __forceinline__ float sweep(float ox, float oy, float oz, float dx, float dy,
+                                         float dz, float a, float inv_a, int* idx) {
+    float best = DR_BIG;
+    int bi = 0;
+    ++admitted;
+    tests += (unsigned long long)n;
+    sweep_range<true>(sph, 0, n, ox, oy, oz, dx, dy, dz, a, inv_a, best, bi, &near_tests);
+    *idx = bi;
+    return best;
+  }
+};
+
+// One bounce of lane i through the scene accessor sc.
+template <class Scene>
+__device__ __forceinline__ void bounce_lane(Scene& sc, const Lanes& L, int i) {
+  float o[3], d[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o[k] = L.o[3 * i + k];
+    d[k] = L.d[3 * i + k];
+  }
+  const float a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+  const float inv_a = 1.0f / a;
+  int bi;
+  const float t = sc.sweep(o[0], o[1], o[2], d[0], d[1], d[2], a, inv_a, &bi);
+  const uint32_t rid = (uint32_t)L.rid[i];
+  float rec[4];
+  if (L.draws != nullptr) {
+    unit_from(L.draws[i], L.draws[L.R + i], L.draws[2 * L.R + i], L.draws[3 * L.R + i], rec);
+    rec[3] = L.draws[4 * L.R + i];
+  } else {
+    bounce_draws(rid, L.seed, rec);
+  }
+  float at[3] = {1.0f, 1.0f, 1.0f};
+  float co[3] = {0.0f, 0.0f, 0.0f};
+  bool fin = false;
+  if (L.act[i]) {
+    fin = shade<true>(o, d, a, t, sc, bi, rid, L.seed, at, co, rec);
+    if (fin) {  // shade left o and d as they were; the lane passes them through
+      at[0] = at[1] = at[2] = 1.0f;
+    } else {
+      co[0] = co[1] = co[2] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    L.new_o[3 * i + k] = o[k];
+    L.new_d[3 * i + k] = d[k];
+    L.atten[3 * i + k] = at[k];
+    L.color[3 * i + k] = co[k];
+    L.ruv[3 * i + k] = rec[k];
+  }
+  L.u[i] = rec[3];
+  L.finished[i] = fin ? 1 : 0;
+  L.idx[i] = bi;  // 0 on a miss
+  L.hit[i] = t < DR_BIG * 0.5f ? 1 : 0;
+}
+
+// Adds the launch's counts to stats [4] (lanes, chunks swept, sphere
+// tests, tests with disc >= 0).  Every thread of the block calls it.
+template <class Scene>
+__device__ __forceinline__ void add_stats(const Scene& sc, bool lane,
+                                          unsigned long long* stats) {
+  if (stats == nullptr) return;
+  add_count(lane ? 1ull : 0ull, stats + 0);
+  add_count(sc.admitted, stats + 1);
+  add_count(sc.tests, stats + 2);
+  add_count(sc.near_tests, stats + 3);
+}
+
+// K10.  RESIDENT: the scene (n <= MAX_SPHERES) staged in shared memory.
+template <bool RESIDENT>
+__global__ void __launch_bounds__(THREADS)
+fused_bounce_kernel(const float4* __restrict__ sph,    // [n]: cx, cy, cz, r2
+                    const float* __restrict__ attrs,   // [11, n]: ops/kernels/bounce.py A_*
+                    int n, Lanes L, unsigned long long* __restrict__ stats) {
+  __shared__ float4 s_sph[RESIDENT ? MAX_SPHERES : 1];
+  __shared__ float s_att[RESIDENT ? ATT_ROWS * MAX_SPHERES : 1];
+  if (RESIDENT) {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      s_sph[j] = sph[j];
+#pragma unroll
+      for (int r = 0; r < ATT_ROWS; ++r) s_att[r * MAX_SPHERES + j] = attrs[(3 + r) * n + j];
+    }
+    __syncthreads();
+  }
+  DenseScene sc = RESIDENT ? DenseScene{s_sph, s_att, MAX_SPHERES, n, 0, 0, 0}
+                           : DenseScene{sph, attrs + 3 * n, n, n, 0, 0, 0};
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < L.R) bounce_lane(sc, L, i);
+  add_stats(sc, i < L.R, stats);
+}
+
+// K14: the walk over the culled scene's chunks.
+__global__ void __launch_bounds__(THREADS)
+culled_fused_bounce_kernel(const float4* __restrict__ sph,     // [n_slots]: cx, cy, cz, r2
+                           const float* __restrict__ attrs,    // [11, n_slots]
+                           const float4* __restrict__ bounds,  // [>= n_chunks]: bx, by, bz, r2
+                           const int* __restrict__ chunk_len,  // [n_chunks]
+                           int n_slots, int chunk, int n_chunks, Lanes L,
+                           unsigned long long* __restrict__ stats) {
+  WalkScene sc{sph, attrs + 3 * n_slots, bounds, chunk_len, n_slots, chunk, n_chunks, 0, 0, 0};
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < L.R) bounce_lane(sc, L, i);
+  add_stats(sc, i < L.R, stats);
+}
+
+static Lanes lanes(const float* o, const float* d, const uint8_t* act, const int* rid,
+                   const float* draws, int seed, int R, float* new_o, float* new_d,
+                   float* atten, float* color, int* finished, int* idx, uint8_t* hit,
+                   float* ruv, float* u) {
+  return Lanes{o, d, act, rid, draws, (uint32_t)seed, R, new_o, new_d, atten, color,
+               finished, idx, hit, ruv, u};
+}
+
+extern "C" int fused_bounce_launch(const float* sph, const float* attrs, int n,
+                                   const float* o, const float* d, const uint8_t* act,
+                                   const int* rid, const float* draws, int seed, int R,
+                                   float* new_o, float* new_d, float* atten, float* color,
+                                   int* finished, int* idx, uint8_t* hit, float* ruv, float* u,
+                                   unsigned long long* stats, void* stream) {
+  if (n < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  const Lanes L = lanes(o, d, act, rid, draws, seed, R, new_o, new_d, atten, color, finished,
+                        idx, hit, ruv, u);
+  const int blocks = (R + THREADS - 1) / THREADS;
+  const float4* s = reinterpret_cast<const float4*>(sph);
+  if (n <= MAX_SPHERES) {
+    fused_bounce_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(s, attrs, n, L, stats);
+  } else {
+    fused_bounce_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(s, attrs, n, L,
+                                                                              stats);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int culled_fused_bounce_launch(const float* sph, const float* attrs,
+                                          const float* bounds, const int* chunk_len,
+                                          int n_slots, int chunk, int n_chunks, const float* o,
+                                          const float* d, const uint8_t* act, const int* rid,
+                                          const float* draws, int seed, int R, float* new_o,
+                                          float* new_d, float* atten, float* color,
+                                          int* finished, int* idx, uint8_t* hit, float* ruv,
+                                          float* u, unsigned long long* stats, void* stream) {
+  if (n_chunks < 1 || chunk < 1 || n_slots != chunk * n_chunks || R < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Lanes L = lanes(o, d, act, rid, draws, seed, R, new_o, new_d, atten, color, finished,
+                        idx, hit, ruv, u);
+  const int blocks = (R + THREADS - 1) / THREADS;
+  culled_fused_bounce_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(sph), attrs, reinterpret_cast<const float4*>(bounds),
+      chunk_len, n_slots, chunk, n_chunks, L, stats);
+  return (int)cudaGetLastError();
+}

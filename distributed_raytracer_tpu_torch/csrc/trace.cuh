@@ -160,6 +160,7 @@ __device__ __forceinline__ int trace_from(Scene& sc, float o[3], float d[3], uin
     const float t = sc.sweep(o[0], o[1], o[2], d[0], d[1], d[2], a, inv_a, &bi);
     const uint32_t seed = bounce_seed + (uint32_t)depth * 65537u;
     float at[3], co[3], rec[4];
+    if (RECORD) bounce_draws(rid, seed, rec);
     const bool fin = shade<RECORD>(o, d, a, t, sc, bi, rid, seed, at, co, rec);
     if (RECORD) {
       const bool hit = t < DR_BIG * 0.5f;

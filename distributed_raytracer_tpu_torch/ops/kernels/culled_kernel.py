@@ -6,8 +6,11 @@ Port of the host half of the JAX package's ops/pallas/culled_kernel.py
 (the ground sphere) go into leading chunks whose bound is infinite, so
 every walk sweeps them; the rest are Morton-ordered by the native cluster
 builder (distributed_raytracer_tpu_torch/native.py) and padded with -1
-slots to a multiple of the chunk.  The block-culled closest-hit kernels
-of that file are not part of the port yet (ROADMAP Queue 2, K12 and K13).
+slots to a multiple of the chunk.  The walk (K9) and the culled fused
+bounce (K14) read a CulledScene through their packs
+(mega_walk_kernel.py::build_walk_pack, culled_bounce_kernel.py::
+build_culled_pack).  The block-culled closest-hit kernels of that file are
+not part of the port yet (ROADMAP Queue 2, K12 and K13).
 """
 
 from __future__ import annotations

@@ -120,14 +120,20 @@ def walk_pack_arrays_from_scene(scene: Scene, slot_to_orig, chunk: int):
 def build_walk_pack(culled: CulledScene, cam_center) -> WalkPack:
     """The visit-ordered pack of a CulledScene (mega_walk_kernel.py:
     111-144): chunks with an infinite bound first, then ascending distance
-    of the bound center from cam_center; bound rows padded to whole GROUPs
-    plus one with r2 = -1."""
-    bc, br2, chunk = culled.bounds_c, culled.bounds_r2, culled.chunk
-    n_chunks = br2.shape[0]
+    of the bound center from cam_center."""
+    bc, br2 = culled.bounds_c, culled.bounds_r2
     cam = np.asarray(cam_center, np.float64).reshape(3)
     dist = np.linalg.norm(bc.astype(np.float64) - cam, axis=-1)
     dist = np.where(np.isinf(br2), -1.0, dist)  # big chunks lead
-    order = np.argsort(dist, kind="stable").astype(np.int64)
+    return pack_in_order(culled, np.argsort(dist, kind="stable").astype(np.int64))
+
+
+def pack_in_order(culled: CulledScene, order: np.ndarray) -> WalkPack:
+    """The pack of a CulledScene with its chunks in the given visit order
+    ([n_chunks] chunk ids); bound rows padded to whole GROUPs plus one with
+    r2 = -1."""
+    bc, br2, chunk = culled.bounds_c, culled.bounds_r2, culled.chunk
+    n_chunks = br2.shape[0]
     c_pad = (-(-n_chunks // GROUP) + 1) * GROUP
     bounds = np.zeros((c_pad, 4), np.float32)
     bounds[:n_chunks, 0:3] = bc[order]
@@ -168,7 +174,7 @@ def chunk_admits_plain(bounds, ox, oy, oz, dx, dy, dz, a, inv_a, best):
     return torch.where(torch.isinf(br2), br2 > 0.0, admit)
 
 
-def _walk_sweep(cols, attrs, bounds, n_chunks: int, tally: torch.Tensor):
+def walk_sweep(cols, attrs, bounds, n_chunks: int, tally: torch.Tensor):
     """trace_plain's sweep for the walk: the dense sweep over the slots,
     and into tally [3] the chunks the walk admits, their live slot tests
     and those with disc >= 0."""
@@ -203,7 +209,7 @@ def mega_walk_sample_plain(scene_pack, attrs, bounds, chunk_len, cam_row, *, bou
     colors, bounces = mega_render_plain(
         cols, attrs, cam_row, bounce_seed=bounce_seed, cam_seed=cam_seed, rid_base=rid_base,
         pix0=pix0, n_valid=n_valid, n_cap=n_cap, w=w, max_depth=max_depth,
-        sweep=_walk_sweep(cols, attrs, bounds, chunk_len.shape[0], tally))
+        sweep=walk_sweep(cols, attrs, bounds, chunk_len.shape[0], tally))
     return colors, torch.cat([bounces, tally])
 
 
@@ -225,32 +231,41 @@ def mega_walk_forward_camera_plain(scene_pack, attrs, bounds, chunk_len, cam_row
     out = mega_forward_camera_plain(
         cols, attrs, cam_row, None, bounce_seed=bounce_seed, cam_seed=cam_seed, pix0=pix0,
         n_valid=n_valid, w=w, max_depth=max_depth,
-        sweep=_walk_sweep(cols, attrs, bounds, chunk_len.shape[0], tally))
+        sweep=walk_sweep(cols, attrs, bounds, chunk_len.shape[0], tally))
     return WalkOut(out.tape, out.lengths, out.colors, torch.cat([out.bounces, tally]))
 
 
-def _check_walk_args(scene_pack, attrs, bounds, chunk_len, cam_row) -> Tuple[int, int, int]:
-    """Check the pack and camera operands of the kernel (CUDA, contiguous,
-    float32 [n_slots, 4], [11, n_slots], [>= n_chunks, 4], [24] and int32
-    [n_chunks], n_slots a multiple of n_chunks); returns (n_slots, chunk,
-    n_chunks)."""
+def check_pack(scene_pack, attrs, bounds, chunk_len, device) -> Tuple[int, int, int]:
+    """Check the pack operands of a walk kernel (CUDA on `device`,
+    contiguous, float32 [n_slots, 4], [11, n_slots], [>= n_chunks, 4] and
+    int32 [n_chunks], n_slots a multiple of n_chunks); returns (n_slots,
+    chunk, n_chunks)."""
     n, n_chunks = scene_pack.shape[0], chunk_len.shape[0]
     for name, x, dtype in (("scene_pack", scene_pack, torch.float32),
                            ("attrs", attrs, torch.float32), ("bounds", bounds, torch.float32),
-                           ("chunk_len", chunk_len, torch.int32),
-                           ("cam_row", cam_row, torch.float32)):
-        if x.device.type != "cuda" or x.device != scene_pack.device or x.dtype != dtype:
+                           ("chunk_len", chunk_len, torch.int32)):
+        if x.device.type != "cuda" or x.device != device or x.dtype != dtype:
             raise ValueError(f"{name} must be a CUDA {dtype} tensor on the pack's device")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if (tuple(scene_pack.shape) != (n, 4) or tuple(attrs.shape) != (A_ROWS, n)
             or bounds.dim() != 2 or bounds.shape[1] != 4 or bounds.shape[0] < n_chunks
-            or tuple(cam_row.shape) != (CAM_ROW,) or chunk_len.dim() != 1
-            or n_chunks < 1 or n % n_chunks):
+            or chunk_len.dim() != 1 or n_chunks < 1 or n % n_chunks):
         raise ValueError(f"bad walk operands: scene_pack {tuple(scene_pack.shape)}, attrs "
                          f"{tuple(attrs.shape)}, bounds {tuple(bounds.shape)}, chunk_len "
-                         f"{tuple(chunk_len.shape)}, cam_row {tuple(cam_row.shape)}")
+                         f"{tuple(chunk_len.shape)}")
     return n, n // n_chunks, n_chunks
+
+
+def _check_walk_args(scene_pack, attrs, bounds, chunk_len, cam_row) -> Tuple[int, int, int]:
+    """check_pack on the pack's device, and the camera row (CUDA float32,
+    contiguous, [24]); returns (n_slots, chunk, n_chunks)."""
+    shape = check_pack(scene_pack, attrs, bounds, chunk_len, scene_pack.device)
+    if (cam_row.device != scene_pack.device or cam_row.dtype != torch.float32
+            or tuple(cam_row.shape) != (CAM_ROW,) or not cam_row.is_contiguous()):
+        raise ValueError("cam_row must be a contiguous CUDA float32 tensor of shape "
+                         f"({CAM_ROW},) on the pack's device")
+    return shape
 
 
 def _lib():

@@ -1,10 +1,15 @@
 """Progressive accumulation with checkpoint and resume.
 
-The port of distributed_raytracer_tpu/render/progressive.py for the mega
-engine: the dense kernel up to 512 spheres, the walk past them
-(progressive.py:121-189 there).  The state is (raw_sum, samples_done,
-seed) and is saved atomically after sample batches, so a lost process
-resumes from its last batch.
+The port of distributed_raytracer_tpu/render/progressive.py for two
+engines: "mega" (the dense kernel up to 512 spheres, the walk past them,
+or the walk over a given CulledScene; progressive.py:121-189 there) and
+"fused" (the wavefront engine, render/wavefront.py, dense or over a
+CulledScene; progressive.py:192-263).  The port's mega engine renders any
+scene and image, so it never falls back to the fused one as JAX's does
+(progressive.py:393-408), and its fused engine renders a batch in one
+call (JAX's max_posdrain_spp sub-chunking is TPU scheduling).  The state
+is (raw_sum, samples_done, seed) and is saved atomically after sample
+batches, so a lost process resumes from its last batch.
 
 Noise: each batch renders its samples with two int32 seeds derived from
 (seed, samples_done) by numpy's SeedSequence.  This is the same estimator
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import tempfile
 from typing import Callable, Optional, Tuple
 
@@ -27,13 +33,20 @@ import numpy as np
 from distributed_raytracer_tpu_torch.core.device import resolve_device
 from distributed_raytracer_tpu_torch.models.scene import Scene
 from distributed_raytracer_tpu_torch.ops.camera import Camera
+from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import CulledScene
 from distributed_raytracer_tpu_torch.ops.kernels.mega_render_kernel import (
     mega_render_supported,
     render_wavefront_sum_mega,
 )
 from distributed_raytracer_tpu_torch.ops.kernels.mega_walk_kernel import (
+    build_walk_pack,
     render_wavefront_sum_mega_walk,
     walk_pack_for,
+)
+from distributed_raytracer_tpu_torch.render.order import tile_permutation
+from distributed_raytracer_tpu_torch.render.wavefront import (
+    DEFAULT_POOL,
+    render_wavefront_sum_fused,
 )
 
 WALK_CHUNK = 256  # slots per walk chunk (progressive.py:171 in the JAX package)
@@ -41,8 +54,7 @@ WALK_CHUNK = 256  # slots per walk chunk (progressive.py:171 in the JAX package)
 # the JAX package's other engines and the ROADMAP items that port them
 _NOT_PORTED = {
     "scan": "ROADMAP Queue 1 item 2 (reference bounce and renderer)",
-    "wavefront": "ROADMAP Queue 1 item 9 (host-loop paths)",
-    "fused": "ROADMAP Queue 1 item 9 (host-loop paths, kernel K10)",
+    "wavefront": "ROADMAP Queue 1 item 9 (the wavefront engine, kernels K11-K13)",
 }
 
 
@@ -130,35 +142,66 @@ def render_progressive(
     progress_cb: Optional[Callable[[AccumState], None]] = None,
     engine: str = "mega",
     device=None,
+    culled: Optional[CulledScene] = None,
+    pool_size: Optional[int] = None,
+    ray_order: str = "row",
+    resort_every: int = 0,
 ) -> AccumState:
     """Render spp samples per pixel in batches, checkpointing after every
-    batch.  A compatible checkpoint (same seed, image size, engine and
-    batch) is resumed; any other is started over.  engine="mega" is the
-    one engine ported so far: it renders a scene of at most 512 spheres
-    with the dense kernel and a larger one with the walk
-    (walk_pack_for(chunk=256), built once); the two give equal images at
-    equal content."""
+    batch.  A compatible checkpoint (same seed, image size, engine tag and
+    batch) is resumed; any other is started over.
+
+    engine="mega": a scene of at most 512 spheres with the dense kernel, a
+    larger one with the walk (walk_pack_for(chunk=256), built once), or,
+    given culled, the walk over that CulledScene in the camera's visit
+    order; all give equal images at equal content.  engine="fused": the
+    wavefront engine (render/wavefront.py) with pool_size lanes (default
+    16384), dense or, given culled, through the culled fused bounce; with
+    culled, ray_order="tiled" streams the pixels in 32x16 tiles and
+    resort_every re-sorts the lanes (the dense engine ignores both, as the
+    JAX engine does).  The engine tag of the state is the engine, with
+    "+culled" when culled is given."""
     if engine in _NOT_PORTED:
         raise NotImplementedError(
             f"engine {engine!r} is not ported yet: {_NOT_PORTED[engine]}")
-    if engine != "mega":
+    if engine not in ("mega", "fused"):
         raise ValueError(f"unknown engine {engine!r}")
+    if ray_order not in ("row", "tiled"):
+        raise ValueError(f"unknown ray_order {ray_order!r}")
     spp = spp if spp is not None else camera.samples_per_pixel
     dev = resolve_device(device)
     camera_dev = camera.to(dev)
-    if mega_render_supported(scene):
+    if engine == "fused":
+        if culled is None and (resort_every or ray_order == "tiled"):
+            print("[render] lane re-sort and tiled ray order on the fused engine need a "
+                  "CulledScene; ignored", file=sys.stderr)
+        opts = dict(pool_size=pool_size or DEFAULT_POOL, culled=culled, device=dev)
+        if culled is not None:
+            opts["resort_every"] = resort_every
+            if ray_order == "tiled":
+                opts["pixel_perm"] = tile_permutation(camera.image_width, camera.image_height)
+        scene_dev = scene.to(dev)
+
+        def render(n, bounce_seed, cam_seed):
+            return render_wavefront_sum_fused(scene_dev, camera_dev, n, bounce_seed, cam_seed,
+                                              **opts)
+    elif culled is None and mega_render_supported(scene):
         scene_dev = scene.to(dev)
 
         def render(n, bounce_seed, cam_seed):
             return render_wavefront_sum_mega(scene_dev, camera_dev, n, bounce_seed, cam_seed,
                                              device=dev)
     else:
-        pack = walk_pack_for(scene, camera, chunk=WALK_CHUNK).to(dev)
+        pack = (walk_pack_for(scene, camera, chunk=WALK_CHUNK) if culled is None else
+                build_walk_pack(culled, camera.center.detach().cpu().numpy())).to(dev)
 
         def render(n, bounce_seed, cam_seed):
             return render_wavefront_sum_mega_walk(pack, camera_dev, n, bounce_seed, cam_seed,
                                                   device=dev)
 
+    # resume must match the engine and whether it ran over a CulledScene,
+    # whose ray order may differ (progressive.py:412-414)
+    tag = engine + ("+culled" if culled is not None else "")
     state: Optional[AccumState] = None
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
         state = AccumState.load(checkpoint_path)
@@ -166,12 +209,12 @@ def render_progressive(
             state.seed != seed
             or state.image_width != camera.image_width
             or state.image_height != camera.image_height
-            or state.engine != engine
+            or state.engine != tag
             or state.batch != batch
         ):
             state = None  # incompatible checkpoint: start over
     if state is None:
-        state = AccumState.fresh(camera, seed, engine=engine, batch=batch)
+        state = AccumState.fresh(camera, seed, engine=tag, batch=batch)
 
     while state.samples_done < spp:
         n = min(batch, spp - state.samples_done)

@@ -4,6 +4,7 @@ These need an NVIDIA card with nvcc; elsewhere they skip.  Run them on
 the card with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 (--noconftest: tests/conftest.py imports jax, which a CUDA machine need not have)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,11 +18,15 @@ from distributed_raytracer_tpu_torch import (
 )
 from distributed_raytracer_tpu_torch.models import presets
 from distributed_raytracer_tpu_torch.ops.camera import Camera, camera_scalar_row
+from distributed_raytracer_tpu_torch.ops.kernels import bounce_kernel as bk
+from distributed_raytracer_tpu_torch.ops.kernels import culled_bounce_kernel as cb
 from distributed_raytracer_tpu_torch.ops.kernels import mega_bwd_kernel as mbk
 from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
 from distributed_raytracer_tpu_torch.ops.kernels import mega_render_kernel as mrk
 from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_bwd_kernel as wbk
 from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_kernel as mwk
+from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import build_culled_scene
+from distributed_raytracer_tpu_torch.render import wavefront
 
 pytestmark = pytest.mark.cuda
 
@@ -321,3 +326,87 @@ def test_ray_and_pose_tracers_on_card(card):
         dif = (got - want).abs()
         assert float(dif.mean()) < 1.5e-3
         assert float((dif.max(dim=1).values > 5e-4).float().mean()) <= 0.02
+
+
+def _lanes(n, seed, card, center=(13.0, 2.0, 3.0), spread=0.1):
+    """Pool lanes made with numpy: origins around center, directions toward
+    the origin plus noise, every third lane inactive, ray ids 7k + 13."""
+    rng = np.random.default_rng(seed)
+    o = (rng.normal(size=(n, 3)) * 2 + np.asarray(center)).astype(np.float32)
+    d = (-o / np.linalg.norm(o, axis=-1, keepdims=True)
+         + spread * rng.normal(size=(n, 3))).astype(np.float32)
+    act = np.arange(n) % 3 != 2
+    rid = (np.arange(n) * 7 + 13).astype(np.int32)
+    return tuple(torch.from_numpy(x).to(card) for x in (o, d, act, rid))
+
+
+def _assert_same_bounce(got, want):
+    for k in bk.BounceOut._fields:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+
+
+@pytest.mark.parametrize("which", ["final512", "field600"])
+def test_fused_bounce_matches_plain_on_card(card, which):
+    """K10 against its plain version, bit for bit, on the shared-memory
+    path (512 spheres) and the global-memory one (601), with hash draws
+    and with given draws, counters included."""
+    if which == "final512":
+        scene, lanes = presets.rtiow_final_scene(pad_to=512), _lanes(4000, 3, card)
+    else:
+        scene = presets.random_sphere_field(600, seed=7, extent=12.0)
+        lanes = _lanes(4000, 4, card, center=(0.0, 6.0, 25.0), spread=0.3)
+    arrays = bk.fused_scene_arrays(scene.to(card))
+    st_k, st_p = (torch.zeros(4, dtype=torch.int64, device=card) for _ in range(2))
+    before = bk.fused_bounce_cuda.launches
+    got = bk.fused_bounce(*lanes, arrays, 24680, stats=st_k)
+    assert bk.fused_bounce_cuda.launches == before + 1
+    want = bk.fused_bounce_plain(*lanes, arrays, 24680, stats=st_p)
+    torch.cuda.synchronize()
+    _assert_same_bounce(got, want)
+    assert torch.equal(st_k, st_p)
+    draws = torch.rand(5, 4000, generator=torch.Generator().manual_seed(1)).clamp(1e-7).to(card)
+    _assert_same_bounce(bk.fused_bounce(*lanes, arrays, 1, draws=draws),
+                        bk.fused_bounce_plain(*lanes, arrays, 1, draws=draws))
+
+
+def test_culled_fused_bounce_matches_plain_on_card(card):
+    """K14 against its plain version and K10 on the culled scene, bit for
+    bit, and its counters against the plain walk's count."""
+    culled = build_culled_scene(presets.rtiow_final_scene(pad_to=512), chunk=128)
+    pack = cb.build_culled_pack(culled).to(card)
+    lanes = _lanes(4000, 5, card)
+    st_k, st_p = (torch.zeros(4, dtype=torch.int64, device=card) for _ in range(2))
+    before = cb.culled_fused_bounce_cuda.launches
+    got = cb.culled_fused_bounce(*lanes, pack, 13579, stats=st_k)
+    assert cb.culled_fused_bounce_cuda.launches == before + 1
+    want = cb.culled_fused_bounce_plain(*lanes, pack, 13579, stats=st_p)
+    dense = bk.fused_bounce(*lanes, bk.fused_scene_arrays(culled.scene.to(card)), 13579)
+    torch.cuda.synchronize()
+    _assert_same_bounce(got, want)
+    _assert_same_bounce(got, dense)
+    assert torch.equal(st_k, st_p)
+
+
+def test_fused_engine_on_card(card):
+    """The fused engine on the card: with a pool holding every ray it
+    equals the mega engine (dense, K5) and the walk (culled, K9) bit for
+    bit; at a refilling pool the dense and culled engines agree and a lane
+    re-sort changes nothing."""
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = presets.final_scene_camera(64).replace(max_depth=8)
+    culled = build_culled_scene(scene, chunk=128)
+    total = 2 * camera.num_pixels
+    kw = dict(device=card)
+    mega = mrk.render_wavefront_sum_mega(scene, camera, 2, 11, 22, **kw)
+    assert torch.equal(wavefront.render_wavefront_sum_fused(scene, camera, 2, 11, 22,
+                                                            pool_size=total, **kw), mega)
+    walk = mwk.render_wavefront_sum_mega_walk(mwk.build_walk_pack(culled, camera.center.numpy()),
+                                              camera, 2, 11, 22, **kw)
+    assert torch.equal(wavefront.render_wavefront_sum_fused(scene, camera, 2, 11, 22,
+                                                            pool_size=total, culled=culled, **kw),
+                       walk)
+    dense = wavefront.render_wavefront_sum_fused(culled.scene, camera, 2, 11, 22, pool_size=512,
+                                                 **kw)
+    walked = wavefront.render_wavefront_sum_fused(scene, camera, 2, 11, 22, pool_size=512,
+                                                  culled=culled, resort_every=2, **kw)
+    assert torch.equal(dense, walked)

@@ -6,9 +6,11 @@ Bands: depth 1 max < 1e-6; depth 8 max < 5e-4 and mean < 5e-6 (the JAX
 kernel-vs-oracle bands of tests/test_mega_render.py).  On the RTiOW final
 scene the JAX interpret kernel differs from its own host oracle on a few
 pixels (the R = 1000 ground sphere's c_q cancels, so a one-ulp difference
-flips a rare self-intersection against T_MIN), so the port is held to the
-oracle at the depth-8 band and to the interpret kernel at <= 2% of pixels
-over 5e-4 and mean < 1.5e-3."""
+flips a rare self-intersection against T_MIN, and how XLA:CPU rounds
+depends on the host), so the port is held to the oracle at the depth-8
+band, and to the interpret kernel at that band on every pixel where the
+kernel stands within it of its own oracle, parting from it on no other
+pixel."""
 
 import jax
 import jax.numpy as jnp
@@ -56,23 +58,30 @@ def test_config2_matches_jax_interpret(depth):
 def final_setup():
     scene = jp.rtiow_final_scene(seed=0, pad_to=512)
     camera = _small_camera(width=32, depth=8)
-    return scene, camera, _port(scene, camera)
+    oracle = np.asarray(_oracle_sample(scene, camera, jnp.int32(S), jnp.int32(BS),
+                                       jnp.int32(CS)))
+    return scene, camera, _port(scene, camera), oracle
 
 
 def test_final_scene_matches_host_oracle(final_setup):
-    scene, camera, got = final_setup
-    want = np.asarray(_oracle_sample(scene, camera, jnp.int32(S), jnp.int32(BS), jnp.int32(CS)))
+    _, _, got, want = final_setup
     d = np.abs(got - want)
     assert d.max() < 5e-4, d.max()
     assert d.mean() < 5e-6, d.mean()
 
 
 def test_final_scene_matches_jax_interpret(final_setup):
-    scene, camera, got = final_setup
-    d = np.abs(got - _jax_kernel(scene, camera))
-    over = (d.max(axis=1) > 5e-4).mean()
-    assert over <= 0.02, over
-    assert d.mean() < 1.5e-3, d.mean()
+    scene, camera, got, oracle = final_setup
+    want = _jax_kernel(scene, camera)
+    d = np.abs(got - want)
+    over = d.max(axis=1) > 5e-4
+    # where JAX's kernel stands within the depth-8 band of its own oracle,
+    # the port stands within it of JAX's kernel, and parts from it nowhere else
+    jax_ok = np.abs(want - oracle).max(axis=1) <= 5e-4
+    assert jax_ok.sum() >= 0.9 * jax_ok.size, jax_ok.size - jax_ok.sum()
+    assert d[jax_ok].max() < 5e-4, d[jax_ok].max()
+    assert d[jax_ok].mean() < 5e-6, d[jax_ok].mean()
+    assert not (over & jax_ok).any(), np.nonzero(over & jax_ok)
 
 
 def test_wavefront_sum_matches_jax():

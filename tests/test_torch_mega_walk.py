@@ -8,12 +8,12 @@ Bands: the pack arrays equal; walk colors against JAX's host oracle
 (tests/test_mega_render.py::_oracle_sample) at the North-star depth-8 band
 (max < 5e-4, mean < 5e-6; measured 8.7e-6 and 5.7e-8 at depth 6).  On
 this scene JAX's interpret walk kernel differs from its own host oracle on
-4 of 312 pixels (up to 0.22; the R = 1000 ground sphere's c_q cancels, so
-a one-ulp difference flips a ray's self-intersection: ROADMAP Queue 3),
-so the port is held to the interpret kernel at the final scene's share
-band of tests/test_torch_mega_render.py (at most 2% of pixels over 5e-4,
-mean < 1.5e-3) and must part from it on no pixel where JAX's kernel and
-oracle agree.  The plain walk equals the dense plain trace bit for bit
+4 to 7 of 312 pixels, by host (up to 0.28; the R = 1000 ground sphere's
+c_q cancels, so a one-ulp difference in how XLA:CPU rounds flips a ray's
+self-intersection: ROADMAP Queue 3), so the port is held to the
+interpret kernel at the depth-8 band on every pixel where that kernel
+stands within the band of its own oracle, and must part from it on no
+other pixel.  The plain walk equals the dense plain trace bit for bit
 (the walk's winner is the dense argmin over its slots), and so does every
 routed render."""
 
@@ -158,13 +158,17 @@ def test_walk_matches_jax_host_oracle(field601):
 
 def test_walk_matches_jax_interpret(field601):
     (want, oracle, got), _, _, _ = field601
-    over = np.abs(got - want).max(axis=1) > 5e-4
-    assert over.mean() <= 0.02, over.sum()
-    assert np.abs(got - want).mean() < 1.5e-3
+    d = np.abs(got - want)
+    over = d.max(axis=1) > 5e-4
+    # where JAX's kernel stands within the depth-8 band of its own oracle,
+    # the port stands within it of JAX's kernel
+    jax_ok = np.abs(want - oracle).max(axis=1) <= 5e-4
+    assert jax_ok.sum() >= 0.9 * jax_ok.size, jax_ok.size - jax_ok.sum()
+    assert d[jax_ok].max() < 5e-4, d[jax_ok].max()
+    assert d[jax_ok].mean() < 5e-6, d[jax_ok].mean()
     # the pixels where the port parts from JAX's kernel are those where
     # JAX's kernel parts from its own oracle
-    jax_off = np.abs(want - oracle).max(axis=1) > 5e-4
-    assert not (over & ~jax_off).any(), np.nonzero(over & ~jax_off)
+    assert not (over & jax_ok).any(), np.nonzero(over & jax_ok)
 
 
 def test_walk_equals_dense_plain_trace(field601):

@@ -36,7 +36,8 @@ def test_port_imports_no_jax():
     for m in ("cli", "grad.tapegrad", "grad.diff_render", "ops.kernels.local_f",
               "ops.kernels.mega_kernel", "ops.kernels.mega_walk_bwd_kernel", "native",
               "ops.kernels.culled_kernel", "ops.kernels.mega_walk_kernel",
-              "ops.kernels.mega_bwd_kernel"):
+              "ops.kernels.mega_bwd_kernel", "ops.kernels.bounce_kernel",
+              "ops.kernels.culled_bounce_kernel", "render.order", "render.wavefront"):
         assert f"distributed_raytracer_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -89,7 +89,7 @@ def test_accum_state_round_trip(small, tmp_path):
 
 def test_other_engines_not_ported(small):
     scene, camera = small
-    for engine in ("scan", "wavefront", "fused"):
+    for engine in ("scan", "wavefront"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_progressive(scene, camera, spp=1, engine=engine, device="cpu")
 
