@@ -14,8 +14,12 @@ final scene (the ray-table tracer on 262,144 rays strided over 1200x675,
 and the pose tracer on all 810,000 pixels, depth 50), then the fused
 wavefront engine (render_progressive(engine="fused"): dense on the final
 scene at 1200x675 depth 50, culled on it and on the 8,192-sphere field at
-1024x576 depth 8, with resume and the CLI), and prints one JSON line of
-kernel numbers and, last, one JSON line with the device.  Any failed
+1024x576 depth 8, with resume and the CLI), then the reference bounce's
+two engines (render_progressive(engine="wavefront") with the closest-hit
+kernel at 1200x675 depth 50, and over the culled field with the two
+culled closest-hit kernels; render_image, the scan engine, at 1200x675
+depth 50; the CLI on both), and prints one JSON line of kernel numbers
+and, last, one JSON line with the device.  Any failed
 phase raises, so the exit code is nonzero and no result line is printed.
 Without a CUDA card it exits with code 2.
 
@@ -38,7 +42,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 KERNELS = ("mega_render", "mega_forward", "mega_walk_bwd", "mega_walk", "mega_bwd",
-           "fused_bounce")
+           "fused_bounce", "intersect", "culled_intersect")
 SOURCE = "distributed_raytracer_tpu_torch/csrc/{}.cu"
 REPLACES = {
     "mega_render": "distributed_raytracer_tpu/ops/pallas/mega_render_kernel.py:179",
@@ -47,10 +51,14 @@ REPLACES = {
     "mega_walk": "distributed_raytracer_tpu/ops/pallas/mega_walk_kernel.py:198",
     "mega_bwd": "distributed_raytracer_tpu/ops/pallas/mega_bwd_kernel.py:215",
     "fused_bounce": "distributed_raytracer_tpu/ops/pallas/bounce_kernel.py:306",
+    "intersect": "distributed_raytracer_tpu/ops/pallas/intersect_kernel.py:50",
+    "culled_intersect": "distributed_raytracer_tpu/ops/pallas/culled_kernel.py:136",
 }
 # rows whose source holds more than one TPU kernel: fused_bounce.cu is K10
-# (dense) and K14 (the walk instantiation)
+# (dense) and K14 (the walk instantiation), culled_intersect.cu K12 (grid)
+# and K13 (walk)
 ROW_REPLACES = {
+    "culled_closest_hit_walk": "distributed_raytracer_tpu/ops/pallas/culled_kernel.py:372",
     "culled_fused_bounce": "distributed_raytracer_tpu/ops/pallas/culled_bounce_kernel.py:136",
     "culled_fused_bounce_field":
         "distributed_raytracer_tpu/ops/pallas/culled_bounce_kernel.py:136",
@@ -67,7 +75,9 @@ ROW_SOURCE = {"mega_forward": "mega_forward", "mega_walk_bwd": "mega_walk_bwd",
               "mega_walk_bwd_global": "mega_walk_bwd", "mega_forward_ray": "mega_forward",
               "mega_bwd": "mega_bwd", "mega_walk_bwd_rays": "mega_walk_bwd",
               "fused_bounce": "fused_bounce", "culled_fused_bounce": "fused_bounce",
-              "culled_fused_bounce_field": "fused_bounce"}
+              "culled_fused_bounce_field": "fused_bounce", "closest_hit": "intersect",
+              "culled_closest_hit": "culled_intersect",
+              "culled_closest_hit_walk": "culled_intersect"}
 NO_LIBRARY = {  # why library_ms is null
     "mega_render": "no single PyTorch call computes a path-traced image sample",
     "mega_forward": "no single PyTorch call computes a recording path-traced sample",
@@ -75,6 +85,8 @@ NO_LIBRARY = {  # why library_ms is null
     "mega_walk": "no single PyTorch call computes a path-traced sample with a chunk walk",
     "mega_bwd": "no single PyTorch call computes the reverse walk of a bounce tape",
     "fused_bounce": "no single PyTorch call computes a shaded bounce",
+    "intersect": "no single PyTorch call computes a ray x sphere closest hit",
+    "culled_intersect": "no single PyTorch call computes a culled ray x sphere closest hit",
 }
 FP32_LANES_PER_SM = 128      # Hopper SM: 4 partitions x 32 FP32 lanes
 # FP32 operations of one ray x sphere test in the sweep (bounce.cuh
@@ -1263,6 +1275,319 @@ def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float) -> dic
     }
 
 
+class RecordIntersect:
+    """Wraps an intersect_fn for one engine run: keeps each call's rays
+    (the engine makes new tensors each bounce, so a reference is a copy),
+    so that three of the run's batches can be held against the plain
+    version and all its launches replayed for their card time."""
+
+    def __init__(self, fn):
+        self.fn, self.inputs = fn, []
+
+    def __call__(self, ray_o, ray_d, scene):
+        self.inputs.append((ray_o, ray_d))
+        return self.fn(ray_o, ray_d, scene)
+
+    def replay_ms(self, launch, prep=lambda o, d: (o, d)) -> float:
+        """The card time of the run's launches: launch(*prep(o, d)) for
+        each call, the operands prepared first, then the launches back to
+        back between two CUDA events, each output dropped at once."""
+        args = [prep(o, d) for o, d in self.inputs]
+
+        def replay():
+            for a in args:
+                launch(*a)
+
+        launch(*args[0])  # warm the allocator
+        return cuda_ms(replay, 1)
+
+    def picks(self):
+        """The first, middle and last batch of the run."""
+        n = len(self.inputs)
+        return [self.inputs[i] for i in sorted({0, n // 2, n - 1})]
+
+
+def engine_ops_per_iteration(dev, scene, cam, intersect_fn) -> float:
+    """PyTorch operations the reference wavefront engine issues per
+    iteration (one bounce of the pool: the threefry keys and draws, the
+    refill, the bounce's intersect glue and shading, the drain), counted
+    by a dispatch mode over a 1-spp render of cam (a kernel launch is not
+    a PyTorch operation)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from distributed_raytracer_tpu_torch.core import prng
+    from distributed_raytracer_tpu_torch.render.wavefront import render_wavefront_sum
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    rec = RecordIntersect(intersect_fn)
+    with Count():
+        render_wavefront_sum(scene.to(dev), cam.to(dev), prng.PRNGKey(0), 1, intersect_fn=rec)
+    return Count.ops / len(rec.inputs)
+
+
+def closest_hit_cost(n_rays: int, n_live: int, near: int, peak: float, sph_rows: int) -> dict:
+    """K11's least time: every ray tests every live sphere (FLOPS_PER_TEST),
+    FLOPS_PER_NEAR_TEST more for each test whose discriminant is not
+    negative; bytes: the rays read (24 B) and t, idx written (8 B) once,
+    the scene (16 B a sphere) once."""
+    tests = n_rays * n_live
+    flops = tests * FLOPS_PER_TEST + near * FLOPS_PER_NEAR_TEST
+    return dict(tests=tests, near=near, flops=flops, bytes=n_rays * 32 + sph_rows * 16,
+                bound_ms=max(flops / peak, (n_rays * 32 + sph_rows * 16) / HBM_BYTES_PER_S) * 1e3)
+
+
+def culled_cost(stats, n_chunks: int, sph_rows: int) -> dict:
+    """K12/K13's least time from the launch's counters: its bound tests
+    (FLOPS_PER_BOUND_TEST), the slot tests of the chunks it admitted and
+    their disc >= 0 share; bytes: the rays in and t, idx out once, the
+    scene, the bounds and one plan row per block once."""
+    rays, bound_tests, admitted, tests, near = (int(x) for x in stats.tolist())
+    flops = (bound_tests * FLOPS_PER_BOUND_TEST + tests * FLOPS_PER_TEST
+             + near * FLOPS_PER_NEAR_TEST)
+    return dict(rays=rays, bound_tests=bound_tests, admitted=admitted, tests=tests, near=near,
+                flops=flops, bytes=rays * 32 + sph_rows * 16 + n_chunks * 20)
+
+
+def check_reference_path(dev, presets, final, cam_main, peak: float) -> dict:
+    """Phases 24-29: the reference bounce and its two engines, with the
+    last three TPU kernels.  K11 (csrc/intersect.cu) against its plain
+    version on a pool batch of the wavefront engine on the final scene and
+    on random rays over the 8,192-sphere field; render_progressive(
+    engine="wavefront", use_pallas=True) at the main path with its K11
+    launches counted and replayed, the same engine through the plain
+    closest hit on the card equal to it bit for bit; K12 and K13
+    (csrc/culled_intersect.cu) through the wavefront engine over the
+    culled field (--accel culled, tiled) and held to their plain version
+    on its batches and on the final scene; the scan engine (render_image)
+    at the main path; the CLI on both engines."""
+    from distributed_raytracer_tpu_torch import render_image
+    from distributed_raytracer_tpu_torch.core import prng
+    from distributed_raytracer_tpu_torch.ops.camera import generate_rays
+    from distributed_raytracer_tpu_torch.ops.intersect import HitResult
+    from distributed_raytracer_tpu_torch.ops.kernels import culled_kernel as ck
+    from distributed_raytracer_tpu_torch.ops.kernels import intersect_kernel as ik
+    from distributed_raytracer_tpu_torch.render import wavefront as wf
+    from distributed_raytracer_tpu_torch.render.image import read_ppm
+    from distributed_raytracer_tpu_torch.render.order import tile_permutation
+    from distributed_raytracer_tpu_torch.render.progressive import render_progressive
+
+    # nothing in the port asks for TF32, so the scan engine's float32
+    # matmuls (ops/intersect.py) run in full float32, as JAX's "highest"
+    require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are switched on")
+
+    def drive(label, scene, cam, fn, counter, **kw):
+        """One engine run of render_progressive(engine="wavefront") at 1
+        spp, its intersect recorded, the wrapper's count set to 0 before
+        it and read after."""
+        rec = RecordIntersect(fn)
+        counter.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state = render_progressive(scene, cam, seed=0, spp=1, batch=1, engine="wavefront",
+                                   intersect_fn=rec, **kw)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        launches = counter.launches
+        img = state.mean_image()
+        require(img.shape == (cam.image_height, cam.image_width, 3) and np.isfinite(img).all(),
+                f"{label}: image is not finite")
+        require(launches >= 1 and launches == len(rec.inputs),
+                f"{label}: the engine did not run its kernel ({launches} launches, "
+                f"{len(rec.inputs)} bounces)")
+        top = img[0, cam.image_width // 2]
+        require(top[2] > top[0], f"{label}: top-center pixel not bluish: {top}")
+        log(f"[wavefront] {label}: {wall:.1f} ms per sample wall "
+            f"({cam.num_pixels / wall * 1e3:,.0f} rays/s), {launches} launches; top-center "
+            f"pixel {top.tolist()}")
+        return dict(ms_per_sample=wall, rays_per_s=cam.num_pixels / wall * 1e3,
+                    launches=launches, tag=state.engine), rec
+
+    # --- phase 24: the wavefront engine with K11 at the main path ---
+    final_dev = final.to(dev)
+    sph_f = ik.sphere_pack(final_dev.centers, final_dev.radii)
+    live_f = int((final.radii > 0).sum())
+    run_k11, rec_k11 = drive("K11 (use_pallas), final 1200x675 depth 50", final, cam_main,
+                             ik.closest_hit_pallas, ik.closest_hit_cuda)
+    require(run_k11["tag"] == "wavefront", run_k11["tag"])
+    kern = rec_k11.replay_ms(ik.closest_hit_cuda, lambda o, d: (o, d, sph_f))
+    run_k11.update(kernel_ms=kern, ms_per_launch=kern / run_k11["launches"],
+                   host_share=(run_k11["ms_per_sample"] - kern) / run_k11["ms_per_sample"])
+    run_k11["ops_per_iteration"] = engine_ops_per_iteration(
+        dev, final, presets.final_scene_camera(120), ik.closest_hit_pallas)
+    log(f"[wavefront] K11's {run_k11['launches']} launches replayed: {kern:.1f} ms of "
+        f"{run_k11['ms_per_sample']:.1f} ms, host share {run_k11['host_share']:.1%}; "
+        f"{run_k11['ops_per_iteration']:.1f} PyTorch operations per iteration (one bounce; "
+        f"counted by a dispatch mode at 120x67)")
+
+    # --- phase 25: K11 against its plain version, bit for bit ---
+    def hold_k11(label, o, d, sph, n_live):
+        stats = torch.zeros(1, dtype=torch.int64, device=dev)
+        t_k, i_k = ik.closest_hit_cuda(o, d, sph, stats=stats)
+        (t_p, i_p), plain_ms = cuda_timed(lambda: ik.closest_hit_plain(o, d, sph))
+        same = torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+        err = float((t_k - t_p).abs().max())
+        ms = cuda_ms(lambda: ik.closest_hit_cuda(o, d, sph), 50)
+        cost = closest_hit_cost(o.shape[0], n_live, int(stats), peak, sph.shape[0])
+        log(f"[k11] {label}: {o.shape[0]:,} rays x {n_live} live spheres, kernel == plain bit "
+            f"for bit {same} (t max abs err {err:.3e}); {ms:.4f} ms per launch, bound "
+            f"{cost['bound_ms']:.4f} ms ({cost['tests']:,} tests, {cost['near']:,} with "
+            f"disc >= 0), plain {plain_ms:.2f} ms")
+        require(same, f"{label}: K11 differs from its plain version")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **cost)
+
+    for o, d in rec_k11.picks():
+        hold_k11("pool batch, final", o, d, sph_f, live_f)
+    o_m, d_m = rec_k11.inputs[len(rec_k11.inputs) // 2]
+    k11 = hold_k11("pool batch (middle), final", o_m, d_m, sph_f, live_f)
+    field = presets.random_sphere_field(8192, seed=5, extent=30.0)
+    field_dev = field.to(dev)
+    sph_w = ik.sphere_pack(field_dev.centers, field_dev.radii)
+    g = torch.Generator().manual_seed(11)
+    o_r = ((torch.rand(16384, 3, generator=g) * 2.0 - 1.0) * 40.0).to(dev)
+    d_r = torch.randn(16384, 3, generator=g).to(dev)
+    k11["field"] = hold_k11("random rays, field", o_r, d_r, sph_w, int((field.radii > 0).sum()))
+    del rec_k11
+
+    # the same engine through the plain closest hit on the card: the same
+    # keys and the same function, so the same sums bit for bit
+    def plain_hit(ray_o, ray_d, scene):
+        t, idx = ik.closest_hit_plain(ray_o, ray_d, ik.sphere_pack(scene.centers, scene.radii))
+        return HitResult(t=t, idx=idx, hit=t < 0.5e30)
+
+    cam_small = presets.final_scene_camera(300)
+    key = prng.fold_in(prng.PRNGKey(0), 0)
+    with_k11 = wf.render_wavefront_sum(final_dev, cam_small.to(dev), key, 1,
+                                       intersect_fn=ik.closest_hit_pallas)
+    with_plain = wf.render_wavefront_sum(final_dev, cam_small.to(dev), key, 1,
+                                         intersect_fn=plain_hit)
+    torch.cuda.synchronize()
+    log(f"[wavefront] final 300x168 depth 50: K11 run == plain-closest-hit run bit for bit "
+        f"{torch.equal(with_k11, with_plain)}")
+    require(torch.equal(with_k11, with_plain), "the K11 engine run differs from the plain one")
+
+    # --- phase 26: K12 (--accel culled) and K13 over the field, tiled ---
+    cam_big = walk_camera(presets, 1024)
+    culled_w = ck.build_culled_scene(field, chunk=FUSED_CHUNK)
+    runs, recs = {}, {}
+    for mode, counter in (("grid", ck.culled_closest_hit_cuda),
+                          ("walk", ck.culled_closest_hit_walk_cuda)):
+        runs[mode], recs[mode] = drive(f"K{12 if mode == 'grid' else 13} ({mode}), field 1024x576 depth 8, "
+                           "tiled", culled_w.scene, cam_big,
+                           ck.make_culled_intersect(culled_w, mode=mode), counter,
+                           ray_order="tiled")
+
+    # --- phase 27: K12 and K13 against their plain version, bit for bit ---
+    def hold_culled(label, culled, o, d, walk):
+        csc = culled.scene.to(dev)
+        sph = ik.sphere_pack(csc.centers, csc.radii)
+        br, nb = ck.plan_blocks(o.shape[0])
+        order, n_visit = ck.block_visit_plan(o, d, torch.from_numpy(culled.bounds_c).to(dev),
+                                             torch.from_numpy(culled.bounds_r2).to(dev), nb, br)
+        bounds = ck.culled_bounds(culled, dev)
+        launch = ck.culled_closest_hit_walk_cuda if walk else ck.culled_closest_hit_cuda
+        args = (o, d, sph, bounds, order, n_visit, culled.chunk, br)
+        stats = torch.zeros(len(ck.CULLED_STATS), dtype=torch.int64, device=dev)
+        t_k, i_k = launch(*args, stats=stats)
+        (t_p, i_p), plain_ms = cuda_timed(
+            lambda: ck.culled_closest_hit_plain(o, d, sph, order, culled.chunk, br))
+        same = torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+        ms = cuda_ms(lambda: launch(*args), 20)
+        n_chunks = order.shape[1]
+        cost = culled_cost(stats, n_chunks, sph.shape[0])
+        dense = o.shape[0] * sph.shape[0]  # K11's tests over the culled scene's slots
+        log(f"[k1{3 if walk else 2}] {label}: {o.shape[0]:,} rays, {n_chunks} chunks of "
+            f"{culled.chunk}, plan visits {float(n_visit.float().mean()):.1f} per block; kernel "
+            f"== plain bit for bit {same}; {ms:.4f} ms per launch, bound "
+            f"{cost['flops'] / peak * 1e3:.4f} ms ({cost['bound_tests']:,} bound tests, "
+            f"{cost['admitted']:,} chunks admitted, {cost['tests']:,} slot tests = "
+            f"{cost['tests'] / dense:.1%} of a dense sweep's, {cost['near']:,} with disc >= 0), "
+            f"plain {plain_ms:.2f} ms")
+        require(same, f"{label}: the culled kernel differs from its plain version")
+        return dict(max_abs_err=float((t_k - t_p).abs().max()), ms=ms, plain_ms=plain_ms,
+                    admitted_share=cost["tests"] / dense, **cost)
+
+    rows = {}
+    for mode in ("grid", "walk"):
+        run, rec = runs[mode], recs.pop(mode)
+        for o, d in rec.picks():
+            hold_culled(f"{mode}, field pool batch", culled_w, o, d, mode == "walk")
+        o_m, d_m = rec.inputs[len(rec.inputs) // 2]
+        rows[mode] = hold_culled(f"{mode}, field pool batch (middle)", culled_w, o_m, d_m,
+                                 mode == "walk")
+        bounds = ck.culled_bounds(culled_w, dev)
+        bc = torch.from_numpy(culled_w.bounds_c).to(dev)
+        br2 = torch.from_numpy(culled_w.bounds_r2).to(dev)
+        csc = culled_w.scene.to(dev)
+        sph = ik.sphere_pack(csc.centers, csc.radii)
+        launch = ck.culled_closest_hit_walk_cuda if mode == "walk" else ck.culled_closest_hit_cuda
+
+        def prep(o, d):
+            br, nb = ck.plan_blocks(o.shape[0])
+            order, n_visit = ck.block_visit_plan(o, d, bc, br2, nb, br)
+            return o, d, sph, bounds, order, n_visit, culled_w.chunk, br
+
+        kern = rec.replay_ms(launch, prep)
+        run.update(kernel_ms=kern, ms_per_launch=kern / run["launches"],
+                   host_share=(run["ms_per_sample"] - kern) / run["ms_per_sample"])
+        log(f"[wavefront] {mode}: the run's {run['launches']} launches replayed: {kern:.1f} ms "
+            f"of {run['ms_per_sample']:.1f} ms, host share {run['host_share']:.1%}")
+        del rec
+    culled_f = ck.build_culled_scene(final, chunk=FUSED_CHUNK)
+    ids = torch.as_tensor(tile_permutation(cam_main.image_width, cam_main.image_height)[:16384],
+                          device=dev)
+    o_f, d_f = generate_rays(cam_main.to(dev), ids % cam_main.image_width,
+                             ids // cam_main.image_width, key=prng.PRNGKey(1))
+    for mode in ("grid", "walk"):
+        rows[mode]["final"] = hold_culled(f"{mode}, final camera rays (first 16,384 in tiles)",
+                                          culled_f, o_f, d_f, mode == "walk")
+
+    # --- phase 28: the scan engine at the main path ---
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img = render_image(final, cam_main, seed=0, spp=1)
+    torch.cuda.synchronize()
+    scan_ms = (time.time() - t0) * 1e3
+    h, w = cam_main.image_height, cam_main.image_width
+    require(img.shape == (h, w, 3) and np.isfinite(img).all(),
+            f"scan image of shape {img.shape} is not a finite {h}x{w}x3 image")
+    top = img[0, w // 2]
+    require(top[2] > top[0], f"scan: top-center pixel not bluish {top}")
+    log(f"[scan] render_image final 1200x675 depth 50 spp 1: {scan_ms:.1f} ms "
+        f"({cam_main.num_pixels / scan_ms * 1e3:,.0f} rays/s; no kernel: the reference bounce "
+        f"in plain PyTorch, tiles of 32,768 rays); top-center pixel {top.tolist()}")
+
+    # --- phase 29: the CLI on the reference engines ---
+    for args in (["--engine", "wavefront", "--pallas"], ["--engine", "scan"]):
+        out_ppm = ROOT / "build" / f"smoke_{args[1]}.ppm"
+        t0 = time.time()
+        r = subprocess.run(
+            [sys.executable, "-m", "distributed_raytracer_tpu_torch.cli", "render", "--config",
+             "config5", "--spp", "1", *args, "--out", str(out_ppm)], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        log(f"[cli] {' '.join(args)} exit {r.returncode} in {time.time() - t0:.1f} s: "
+            f"{r.stderr.strip().splitlines()[-1] if r.stderr.strip() else ''}")
+        require(r.returncode == 0, r.stderr[-4000:])
+        require(read_ppm(str(out_ppm)).shape == (675, 1200, 3), "CLI PPM is not 1200x675")
+
+    def row(check, launches):
+        return dict(launches=launches, max_abs_err=check["max_abs_err"], ms=check["ms"],
+                    plain_ms=check["plain_ms"], flops=check["flops"], bytes=check["bytes"])
+
+    return {
+        "closest_hit": row(k11, run_k11["launches"]),
+        "culled_closest_hit": row(rows["grid"], runs["grid"]["launches"]),
+        "culled_closest_hit_walk": row(rows["walk"], runs["walk"]["launches"]),
+        "record": dict(wavefront_k11=run_k11, k11=k11, culled=runs, culled_checks=rows,
+                       scan_ms_per_sample=scan_ms),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, help="write the run's numbers to this JSON file")
@@ -1394,6 +1719,9 @@ def main() -> int:
     rays = check_ray_pose_path(dev, final, cam_main)
     # --- phases 19-23: the fused wavefront engine (K10, K14) ---
     fused = check_fused_path(dev, presets, final, cam_main, k, peak)
+    # --- phases 24-29: the reference bounce, its scan and wavefront engines
+    # (K11, K12, K13) ---
+    ref = check_reference_path(dev, presets, final, cam_main, peak)
 
     # --- phase 9: the kernel line, then the device line last ---
     # K5 at the main-path shape traced the rays K6 recorded (sample 0, the
@@ -1412,7 +1740,9 @@ def main() -> int:
             (n, walk[n]) for n in ("mega_walk", "mega_walk_record", "mega_walk_bwd_global")] + [
             (n, rays[n]) for n in ("mega_forward_ray", "mega_bwd", "mega_walk_bwd_rays")] + [
             (n, fused[n]) for n in ("fused_bounce", "culled_fused_bounce",
-                                    "culled_fused_bounce_field")]:
+                                    "culled_fused_bounce_field")] + [
+            (n, ref[n]) for n in ("closest_hit", "culled_closest_hit",
+                                  "culled_closest_hit_walk")]:
         src = ROW_SOURCE[name]
         ops_s = g["flops"] / peak
         bytes_s = g["bytes"] / HBM_BYTES_PER_S
@@ -1433,7 +1763,7 @@ def main() -> int:
         record = dict(card=smi, kernels=kernels, mean_bounces_per_ray=kb / n_pix,
                       main_path_ms_per_sample=wall * 1e3 / 4, gradient_path=grad["record"],
                       walk_path=walk["record"], ray_pose_path=rays["record"],
-                      fused_path=fused["record"],
+                      fused_path=fused["record"], reference_path=ref["record"],
                       seconds=time.time() - t_start)
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

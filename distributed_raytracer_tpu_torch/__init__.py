@@ -28,6 +28,8 @@ from distributed_raytracer_tpu_torch.ops.camera import Camera, make_camera
 from distributed_raytracer_tpu_torch.ops.kernels.mega_walk_kernel import (
     render_wavefront_sum_mega_walk,
 )
+from distributed_raytracer_tpu_torch.render.renderer import render_image, render_sample_batch
+from distributed_raytracer_tpu_torch.render.wavefront import render_image_wavefront
 
 __all__ = [
     "Scene",
@@ -39,6 +41,9 @@ __all__ = [
     "make_tape_tracer",
     "make_tape_camera_pose_tracer",
     "render_wavefront_sum_mega_walk",
+    "render_image",
+    "render_sample_batch",
+    "render_image_wavefront",
     "image_loss",
     "LAMBERTIAN",
     "METAL",

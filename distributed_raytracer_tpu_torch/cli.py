@@ -3,13 +3,17 @@
     python -m distributed_raytracer_tpu_torch.cli render --config config5 --spp 4 --out out.ppm
 
 `render` is the progressive renderer, with checkpoint/resume, on the mega
-engine (the default) or the fused wavefront engine (--engine fused);
---accel culled renders over the Morton-chunked CulledScene (chunks of 256
-on the mega engine, 128 on the fused one, whose rays then stream in tiles
-and may be re-sorted with --resort K).  It runs on the CUDA card; --cpu
-runs the plain PyTorch versions on the CPU instead.
+engine (the default), the fused wavefront engine (--engine fused), the
+reference wavefront engine (--engine wavefront; --pallas intersects with
+the K11 kernel) or the scan engine (--engine scan); --accel culled
+renders over the Morton-chunked CulledScene (chunks of 256 on the mega
+engine, 128 on the wavefront engines, whose rays then stream in tiles
+and may be re-sorted with --resort K; the reference wavefront engine
+intersects it with the block-culled K12).  It runs on the CUDA card;
+--cpu runs the plain PyTorch versions on the CPU instead.
 
     python -m distributed_raytracer_tpu_torch.cli render --engine fused --accel culled --cpu
+    python -m distributed_raytracer_tpu_torch.cli render --engine wavefront --pallas --cpu
 """
 
 from __future__ import annotations
@@ -49,12 +53,20 @@ def cmd_render(args):
     scene, cam = _load(args)
     out = args.out or f"{args.config}.ppm"
     device = "cpu" if args.cpu else None
-    culled = None
+    culled = intersect_fn = None
     if args.accel == "culled":
-        from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import build_culled_scene
+        from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import (
+            build_culled_scene,
+            make_culled_intersect,
+        )
 
         culled = build_culled_scene(scene, chunk=256 if args.engine == "mega" else 128)
         scene = culled.scene  # the reordered scene the culled engines trace
+        if args.engine in ("scan", "wavefront"):
+            # the reference engine intersects the culled scene through K12;
+            # the mega and fused engines walk the CulledScene themselves
+            intersect_fn, culled = make_culled_intersect(culled), None
+            args.engine = "wavefront"
     t0 = time.time()
 
     def progress(state):
@@ -69,7 +81,8 @@ def cmd_render(args):
         scene, cam, seed=args.seed, spp=cam.samples_per_pixel, batch=args.batch,
         checkpoint_path=args.checkpoint, resume=not args.no_resume,
         progress_cb=progress, engine=args.engine, device=device, culled=culled,
-        ray_order="tiled" if culled is not None else "row", resort_every=args.resort,
+        ray_order="tiled" if args.accel == "culled" else "row", resort_every=args.resort,
+        use_pallas=args.pallas, intersect_fn=intersect_fn,
     )
     write_ppm(out, state.mean_image())
     print(f"wrote {out} [engine={state.engine}, device={'cpu' if args.cpu else 'cuda'}]",
@@ -88,15 +101,19 @@ def main(argv=None):
     p.add_argument("--out", default=None, help="output .ppm path")
     p.add_argument("--checkpoint", default=None, help="checkpoint path for resume")
     p.add_argument("--no-resume", action="store_true")
-    p.add_argument("--engine", choices=["mega", "fused"], default="mega",
+    p.add_argument("--engine", choices=["mega", "fused", "scan", "wavefront"], default="mega",
                    help="mega = one kernel launch per image sample; fused = the wavefront "
-                        "engine, one fused bounce launch per bounce of a ray pool")
+                        "engine, one fused bounce launch per bounce of a ray pool; scan = "
+                        "the reference bounce over ray tiles; wavefront = the reference "
+                        "bounce over a ray pool (JAX's threefry noise)")
+    p.add_argument("--pallas", action="store_true",
+                   help="the wavefront engine intersects with the closest-hit kernel (K11)")
     p.add_argument("--accel", choices=["none", "culled"], default="none",
                    help="culled = render over Morton chunks with bounding spheres, each "
                         "ray sweeping only the chunks it can still hit")
     p.add_argument("--resort", type=int, default=0, metavar="K",
-                   help="re-sort the fused engine's lanes every K bounces (--accel culled; "
-                        "0 = off)")
+                   help="re-sort the wavefront engines' lanes every K bounces (--accel "
+                        "culled; 0 = off)")
     p.add_argument("--cpu", action="store_true",
                    help="run the plain PyTorch version on the CPU")
     p.set_defaults(fn=cmd_render)

@@ -30,16 +30,19 @@
 // K7, and the g_pm bins K7 and K8 sum there
 #define MAX_SPHERES 512
 
-// Sweeps spheres j0 .. j1-1 (cx, cy, cz, r2) into the running closest hit
-// (best, bi), ascending index with a strict <, so the first minimum wins
-// as in jnp.argmin, and a later range wins only with a smaller t (the
-// walk's chunk merge).  r2 = -1 marks a sphere that never hits.  COUNT
-// also adds the tests whose discriminant is not negative to *n_near.
+// Sweeps spheres j0 .. j1-1 of sph (cx, cy, cz, r2) into the running
+// closest hit (best, bi), ascending index with a strict <, so the first
+// minimum wins as in jnp.argmin, and a later range wins only with a
+// smaller t (the walk's chunk merge).  The winner's index is base + j
+// (base: where sph starts in the scene, for a tile staged in shared
+// memory).  r2 = -1 marks a sphere that never hits.  COUNT also adds the
+// tests whose discriminant is not negative to *n_near.
 template <bool COUNT = false>
 __device__ __forceinline__ void sweep_range(const float4* sph, int j0, int j1, float ox,
                                             float oy, float oz, float dx, float dy, float dz,
                                             float a, float inv_a, float& best, int& bi,
-                                            unsigned long long* n_near = nullptr) {
+                                            unsigned long long* n_near = nullptr,
+                                            int base = 0) {
   for (int j = j0; j < j1; ++j) {
     const float4 s = sph[j];
     const float ocx = s.x - ox;
@@ -56,7 +59,7 @@ __device__ __forceinline__ void sweep_range(const float4* sph, int j0, int j1, f
       const float t = rn > DR_T_MIN ? rn : (rf > DR_T_MIN ? rf : DR_BIG);
       if (t < best) {
         best = t;
-        bi = j;
+        bi = base + j;
       }
     }
   }

@@ -6,11 +6,13 @@ kernel reads."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from distributed_raytracer_tpu_torch.core import prng
+from distributed_raytracer_tpu_torch.core import rng as drng
 from distributed_raytracer_tpu_torch.core import vecmath as vm
 
 _POSE = ("vfov", "lookfrom", "lookat", "vup", "defocus_angle", "focus_dist")
@@ -162,14 +164,20 @@ def rays_from_row(cam_row: torch.Tensor, pixel_i: torch.Tensor,
     cam_row (the disk rows get zero cotangents without defocus, as the
     where passes none), and nothing is read back to the host."""
     jx, jy, u1, u2 = draws
-    c = cam_row
-    fi = pixel_i.to(torch.float32) + (jx - 0.5)
-    fj = pixel_j.to(torch.float32) + (jy - 0.5)
-    ps = [c[_C_P00 + k] + fi * c[_C_PDU + k] + fj * c[_C_PDV + k] for k in range(3)]
     rr = torch.sqrt(u1)
     th = 6.2831853 * u2
-    p_x = rr * torch.cos(th)
-    p_y = rr * torch.sin(th)
+    return rays_from_offsets(cam_row, pixel_i, pixel_j, jx - 0.5, jy - 0.5,
+                             rr * torch.cos(th), rr * torch.sin(th))
+
+
+def rays_from_offsets(cam_row: torch.Tensor, pixel_i: torch.Tensor, pixel_j: torch.Tensor,
+                      off_x, off_y, p_x, p_y) -> Tuple[torch.Tensor, ...]:
+    """rays_from_row from the pixel offsets (off_x, off_y) in [-0.5, 0.5)
+    and the unit-disk point (p_x, p_y), each [R]."""
+    c = cam_row
+    fi = pixel_i.to(torch.float32) + off_x
+    fj = pixel_j.to(torch.float32) + off_y
+    ps = [c[_C_P00 + k] + fi * c[_C_PDU + k] + fj * c[_C_PDV + k] for k in range(3)]
     use_disk = c[_C_ANG] > 0.0
     o = [torch.where(use_disk, c[_C_CTR + k] + p_x * c[_C_DDU + k] + p_y * c[_C_DDV + k],
                      c[_C_CTR + k]) for k in range(3)]
@@ -177,10 +185,21 @@ def rays_from_row(cam_row: torch.Tensor, pixel_i: torch.Tensor,
 
 
 def generate_rays(camera: Camera, pixel_i: torch.Tensor, pixel_j: torch.Tensor,
-                  draws) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched Camera::get_ray from given uniform draws (jx, jy, u1, u2),
-    each [R].  pixel_i is the column, pixel_j the row.  Returns
-    (origins [R, 3], directions [R, 3])."""
-    ox, oy, oz, dx, dy, dz = rays_from_row(camera_scalar_row(camera),
-                                           pixel_i, pixel_j, draws)
+                  draws=None, *, key: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched Camera::get_ray; pixel_i is the column, pixel_j the row.
+    Returns (origins [R, 3], directions [R, 3]).  The draws are the given
+    uniforms (jx, jy, u1, u2), each [R], or else JAX's threefry draws
+    from key: split(key) gives (k_jitter, k_disk), square_jitter(k_jitter,
+    R) the pixel offsets and in_unit_disk(k_disk, R) the disk point."""
+    cam_row = camera_scalar_row(camera)
+    if draws is not None:
+        ox, oy, oz, dx, dy, dz = rays_from_row(cam_row, pixel_i, pixel_j, draws)
+    else:
+        r = pixel_i.shape[0]
+        k_jitter, k_disk = prng.split(key)
+        offset = drng.square_jitter(k_jitter, r, device=pixel_i.device)
+        p = drng.in_unit_disk(k_disk, r, device=pixel_i.device)
+        ox, oy, oz, dx, dy, dz = rays_from_offsets(cam_row, pixel_i, pixel_j, offset[:, 0],
+                                                   offset[:, 1], p[:, 0], p[:, 1])
     return torch.stack([ox, oy, oz], -1), torch.stack([dx, dy, dz], -1)

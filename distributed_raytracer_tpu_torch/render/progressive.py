@@ -1,9 +1,12 @@
 """Progressive accumulation with checkpoint and resume.
 
-The port of distributed_raytracer_tpu/render/progressive.py for two
-engines: "mega" (the dense kernel up to 512 spheres, the walk past them,
-or the walk over a given CulledScene; progressive.py:121-189 there) and
-"fused" (the wavefront engine, render/wavefront.py, dense or over a
+The port of distributed_raytracer_tpu/render/progressive.py for four
+engines: "scan" (render/renderer.py, the reference bounce over ray
+tiles), "wavefront" (render/wavefront.py's reference engine, the dense
+closest hit, K11 with use_pallas, or a given intersect_fn such as the
+culled K12/K13), "mega" (the dense kernel up to 512 spheres, the walk
+past them, or the walk over a given CulledScene; progressive.py:121-189
+there) and "fused" (the fused wavefront engine, dense or over a
 CulledScene; progressive.py:192-263).  The port's mega engine renders any
 scene and image, so it never falls back to the fused one as JAX's does
 (progressive.py:393-408), and its fused engine renders a batch in one
@@ -11,13 +14,19 @@ call (JAX's max_posdrain_spp sub-chunking is TPU scheduling).  The state
 is (raw_sum, samples_done, seed) and is saved atomically after sample
 batches, so a lost process resumes from its last batch.
 
-Noise: each batch renders its samples with two int32 seeds derived from
-(seed, samples_done) by numpy's SeedSequence.  This is the same estimator
-as the JAX CLI at the same --seed, not the same bits (JAX derives its
-seeds from a threefry key).  Bit comparison with the JAX package is made
-at render_wavefront_sum_mega and mega_render_colors with explicit seeds.
-Within the port, resume is bit-identical when the batch size matches the
-checkpoint's.
+Noise: the scan and wavefront engines take JAX's threefry keys exactly
+as JAX's do (core/prng.py): key = PRNGKey(seed); the scan engine folds in
+each global sample index, so its sum does not depend on the batch split,
+and the wavefront engine renders the batch that starts at samples_done
+from fold_in(key, samples_done).  Both give JAX's noise, pixel for pixel
+to float32 rounding.  The mega and fused engines render each batch with
+two int32 seeds derived from (seed, samples_done) by numpy's SeedSequence:
+the same estimator as the JAX CLI at the same --seed, not the same bits
+(JAX derives its hash seeds from a threefry key); bit comparison with
+the JAX package is made at render_wavefront_sum_mega and
+mega_render_colors with explicit seeds.  Within the port, resume is
+bit-identical when the batch size matches the checkpoint's (any batch
+size on the scan engine).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 
+from distributed_raytracer_tpu_torch.core import prng
 from distributed_raytracer_tpu_torch.core.device import resolve_device
 from distributed_raytracer_tpu_torch.models.scene import Scene
 from distributed_raytracer_tpu_torch.ops.camera import Camera
@@ -43,19 +53,18 @@ from distributed_raytracer_tpu_torch.ops.kernels.mega_walk_kernel import (
     render_wavefront_sum_mega_walk,
     walk_pack_for,
 )
+from distributed_raytracer_tpu_torch.ops.intersect import closest_hit
+from distributed_raytracer_tpu_torch.ops.kernels.intersect_kernel import closest_hit_pallas
 from distributed_raytracer_tpu_torch.render.order import tile_permutation
+from distributed_raytracer_tpu_torch.render.renderer import DEFAULT_TILE, render_sample_batch
 from distributed_raytracer_tpu_torch.render.wavefront import (
     DEFAULT_POOL,
+    render_wavefront_sum,
     render_wavefront_sum_fused,
 )
 
 WALK_CHUNK = 256  # slots per walk chunk (progressive.py:171 in the JAX package)
-
-# the JAX package's other engines and the ROADMAP items that port them
-_NOT_PORTED = {
-    "scan": "ROADMAP Queue 1 item 2 (reference bounce and renderer)",
-    "wavefront": "ROADMAP Queue 1 item 9 (the wavefront engine, kernels K11-K13)",
-}
+ENGINES = ("scan", "wavefront", "mega", "fused")
 
 
 @dataclasses.dataclass
@@ -146,32 +155,56 @@ def render_progressive(
     pool_size: Optional[int] = None,
     ray_order: str = "row",
     resort_every: int = 0,
+    use_pallas: bool = False,
+    intersect_fn=None,
+    tile_size: int = DEFAULT_TILE,
 ) -> AccumState:
     """Render spp samples per pixel in batches, checkpointing after every
     batch.  A compatible checkpoint (same seed, image size, engine tag and
-    batch) is resumed; any other is started over.
+    batch; any batch on the scan engine) is resumed; any other is started
+    over.
+
+    engine="scan": render/renderer.py's sample passes, tile_size rays a
+    tile.  engine="wavefront": the reference wavefront engine with
+    pool_size lanes (default 16384), the dense closest hit, K11 with
+    use_pallas, or intersect_fn (which overrides it; for a culled
+    intersect pass culled.scene as scene), ray_order "tiled" and
+    resort_every as on the fused engine.
 
     engine="mega": a scene of at most 512 spheres with the dense kernel, a
     larger one with the walk (walk_pack_for(chunk=256), built once), or,
     given culled, the walk over that CulledScene in the camera's visit
     order; all give equal images at equal content.  engine="fused": the
-    wavefront engine (render/wavefront.py) with pool_size lanes (default
+    fused wavefront engine (render/wavefront.py) with pool_size lanes (default
     16384), dense or, given culled, through the culled fused bounce; with
     culled, ray_order="tiled" streams the pixels in 32x16 tiles and
     resort_every re-sorts the lanes (the dense engine ignores both, as the
     JAX engine does).  The engine tag of the state is the engine, with
     "+culled" when culled is given."""
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet: {_NOT_PORTED[engine]}")
-    if engine not in ("mega", "fused"):
+    if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if ray_order not in ("row", "tiled"):
         raise ValueError(f"unknown ray_order {ray_order!r}")
     spp = spp if spp is not None else camera.samples_per_pixel
     dev = resolve_device(device)
     camera_dev = camera.to(dev)
-    if engine == "fused":
+    key = prng.PRNGKey(seed)
+    if engine == "scan":
+        scene_dev = scene.to(dev)
+
+        def render(n, done):
+            return render_sample_batch(scene_dev, camera_dev, key, range(done, done + n),
+                                       tile_size)
+    elif engine == "wavefront":
+        scene_dev = scene.to(dev)
+        ifn = intersect_fn or (closest_hit_pallas if use_pallas else closest_hit)
+        perm = (tile_permutation(camera.image_width, camera.image_height)
+                if ray_order == "tiled" else None)
+
+        def render(n, done):
+            return render_wavefront_sum(scene_dev, camera_dev, prng.fold_in(key, done), n,
+                                        pool_size or DEFAULT_POOL, ifn, perm, resort_every)
+    elif engine == "fused":
         if culled is None and (resort_every or ray_order == "tiled"):
             print("[render] lane re-sort and tiled ray order on the fused engine need a "
                   "CulledScene; ignored", file=sys.stderr)
@@ -182,22 +215,22 @@ def render_progressive(
                 opts["pixel_perm"] = tile_permutation(camera.image_width, camera.image_height)
         scene_dev = scene.to(dev)
 
-        def render(n, bounce_seed, cam_seed):
-            return render_wavefront_sum_fused(scene_dev, camera_dev, n, bounce_seed, cam_seed,
-                                              **opts)
+        def render(n, done):
+            return render_wavefront_sum_fused(scene_dev, camera_dev, n,
+                                              *batch_seeds(seed, done), **opts)
     elif culled is None and mega_render_supported(scene):
         scene_dev = scene.to(dev)
 
-        def render(n, bounce_seed, cam_seed):
-            return render_wavefront_sum_mega(scene_dev, camera_dev, n, bounce_seed, cam_seed,
-                                             device=dev)
+        def render(n, done):
+            return render_wavefront_sum_mega(scene_dev, camera_dev, n,
+                                             *batch_seeds(seed, done), device=dev)
     else:
         pack = (walk_pack_for(scene, camera, chunk=WALK_CHUNK) if culled is None else
                 build_walk_pack(culled, camera.center.detach().cpu().numpy())).to(dev)
 
-        def render(n, bounce_seed, cam_seed):
-            return render_wavefront_sum_mega_walk(pack, camera_dev, n, bounce_seed, cam_seed,
-                                                  device=dev)
+        def render(n, done):
+            return render_wavefront_sum_mega_walk(pack, camera_dev, n,
+                                                  *batch_seeds(seed, done), device=dev)
 
     # resume must match the engine and whether it ran over a CulledScene,
     # whose ray order may differ (progressive.py:412-414)
@@ -210,7 +243,7 @@ def render_progressive(
             or state.image_width != camera.image_width
             or state.image_height != camera.image_height
             or state.engine != tag
-            or state.batch != batch
+            or (engine != "scan" and state.batch != batch)
         ):
             state = None  # incompatible checkpoint: start over
     if state is None:
@@ -218,8 +251,7 @@ def render_progressive(
 
     while state.samples_done < spp:
         n = min(batch, spp - state.samples_done)
-        bounce_seed, cam_seed = batch_seeds(seed, state.samples_done)
-        delta = render(n, bounce_seed, cam_seed)
+        delta = render(n, state.samples_done)
         state.raw_sum = state.raw_sum + delta.cpu().numpy()
         state.samples_done += n
         if checkpoint_path:

@@ -1,9 +1,26 @@
-"""The fused wavefront engine: a persistent pool of ray lanes, kept full
-from the global ray stream, one fused bounce kernel launch per bounce.
+"""The wavefront engines: a persistent pool of ray lanes, kept full from
+the global ray stream.
 
-Port of distributed_raytracer_tpu/render/wavefront.py::
-render_wavefront_sum_fused (:243-495) and warp_resort_permutation
-(:513-530).  Per block of REFILL_EVERY bounces:
+Port of distributed_raytracer_tpu/render/wavefront.py: the reference
+engine render_wavefront_sum (:78) with render_image_wavefront (:533),
+the fused engine render_wavefront_sum_fused (:243-495) and
+warp_resort_permutation (:513-530).
+
+The reference engine is JAX's loop of ops/trace.py's bounce_step over the
+pool, on JAX's threefry keys, so its sums equal JAX's to rounding.  Per
+iteration `it` (one block of refill_every bounces, 1 by default): k =
+fold_in(key, it) splits into k_cam and k_bounce; free lanes take the next
+stream rays (cumsum rank; camera rays drawn for the whole pool from
+k_cam); bounce s of the block draws from fold_in(k_bounce, s) through
+intersect_fn (the dense closest_hit, K11's closest_hit_pallas, or a
+culled intersect, K12/K13); a lane that finished writes its color once
+per block into a per-ray buffer at its ray index (a unique-index scatter
+into total + 1 rows, the last one dropped); a lane still alive at the
+camera's depth is black.  resort_every re-sorts the lanes as the fused
+engine does; the draws are per lane position, so a re-sort changes the
+noise, as in JAX.  The loop reads the live count back once per block.
+
+The fused engine, per block of REFILL_EVERY bounces:
 
   1. refill: free lanes take the next stream rays by cumsum rank (ray
      index = emitted + rank, pixel = ray index mod the pixel count, through
@@ -37,11 +54,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from distributed_raytracer_tpu_torch.core import prng
 from distributed_raytracer_tpu_torch.core.device import resolve_device
 from distributed_raytracer_tpu_torch.models.scene import Scene
-from distributed_raytracer_tpu_torch.ops.camera import Camera, camera_scalar_row
+from distributed_raytracer_tpu_torch.ops.camera import Camera, camera_scalar_row, generate_rays
+from distributed_raytracer_tpu_torch.ops.intersect import closest_hit
 from distributed_raytracer_tpu_torch.ops.kernels.bounce_kernel import (
     fused_bounce,
     fused_scene_arrays,
@@ -52,13 +72,133 @@ from distributed_raytracer_tpu_torch.ops.kernels.culled_bounce_kernel import (
 )
 from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import CulledScene
 from distributed_raytracer_tpu_torch.ops.kernels.hash import wrap_i32
+from distributed_raytracer_tpu_torch.ops.kernels.intersect_kernel import closest_hit_pallas
 from distributed_raytracer_tpu_torch.ops.kernels.mega_render_kernel import camera_rays_host
-from distributed_raytracer_tpu_torch.render.order import inverse_permutation
+from distributed_raytracer_tpu_torch.ops.trace import RayState, bounce_step
+from distributed_raytracer_tpu_torch.render.order import inverse_permutation, tile_permutation
 
 # lanes in the pool: the JAX engine's default (wavefront.py:53)
 DEFAULT_POOL = 16384
-# bounces per refill block: the JAX engine's default (refill_every=2)
+# bounces per refill block of the fused engine: the JAX engine's default
+# (refill_every=2); the reference engine's default is 1
 REFILL_EVERY = 2
+
+
+def scene_box(scene: Scene):
+    """(lo [3], hi [3]) of the scene's real spheres and the origin (the
+    re-sort's Morton grid; radius <= 0 counts as a point at 0)."""
+    real = scene.radii > 0.0
+    safe_c = torch.where(real[:, None], scene.centers, 0.0)
+    safe_r = torch.where(real, scene.radii, 0.0)[:, None]
+    return (safe_c - safe_r).amin(0), (safe_c + safe_r).amax(0)
+
+
+def render_wavefront_sum(scene: Scene, camera: Camera, key: torch.Tensor, spp: int,
+                         pool_size: int = DEFAULT_POOL, intersect_fn=closest_hit,
+                         pixel_perm=None, resort_every: int = 0,
+                         refill_every: int = 1) -> torch.Tensor:
+    """Color sum [n_pix, 3] of spp samples per pixel on the reference
+    engine, on the scene's device (scene and camera on one device).
+    pixel_perm: [n_pix] stream pixel order (render/order.py's
+    tile_permutation); the sums come back in pixel order either way.  The
+    ray state takes the scene's dtype (float32; the plain versions also
+    float64, whose run referees float32 rounding in tests)."""
+    dev = scene.centers.device
+    n_pix = camera.num_pixels
+    w = camera.image_width
+    total = n_pix * spp
+    b = min(pool_size, total)
+    max_depth = camera.max_depth
+    k_sub = max(1, refill_every)
+    perm = None if pixel_perm is None else torch.as_tensor(pixel_perm).to(dev, torch.int64)
+    if resort_every:
+        bb_lo, bb_hi = scene_box(scene)
+
+    f = dict(dtype=scene.centers.dtype, device=dev)
+    st = RayState(origin=torch.zeros(b, 3, **f), direction=torch.zeros(b, 3, **f),
+                  attenuation=torch.ones(b, 3, **f), color=torch.zeros(b, 3, **f),
+                  active=torch.zeros(b, dtype=torch.bool, device=dev))
+    lane_ray = torch.zeros(b, dtype=torch.int64, device=dev)
+    depth = torch.zeros(b, dtype=torch.int32, device=dev)
+    out = torch.zeros(total + 1, 3, **f)  # per ray, in stream order; row total: dropped
+    emitted, n_live, it = 0, 0, 0
+    while emitted < total or n_live > 0:
+        k_cam, k_bounce = prng.split(prng.fold_in(key, it))
+        if resort_every and it > 0 and it % resort_every < k_sub:
+            order = warp_resort_permutation(st.origin, st.direction, st.active, bb_lo, bb_hi)
+            st = RayState(*(x[order] for x in st))
+            lane_ray, depth = lane_ray[order], depth[order]
+        if emitted < total:  # refill; with nothing left to emit it takes no lane
+            free = ~st.active
+            rank = torch.cumsum(free, 0, dtype=torch.int64) - 1
+            take = free & (rank < total - emitted)
+            ray_idx = emitted + torch.where(take, rank, 0)
+            pix = ray_idx % n_pix
+            if perm is not None:
+                pix = perm[pix]
+            new_o, new_d = generate_rays(camera, pix % w, pix // w, key=k_cam)
+            tk = take[:, None]
+            st = RayState(origin=torch.where(tk, new_o, st.origin),
+                          direction=torch.where(tk, new_d, st.direction),
+                          attenuation=torch.where(tk, 1.0, st.attenuation),
+                          color=torch.where(tk, 0.0, st.color), active=st.active | take)
+            lane_ray = torch.where(take, ray_idx, lane_ray)
+            depth = torch.where(take, 0, depth)
+            emitted += min(b - n_live, total - emitted)
+        fin_any = torch.zeros(b, dtype=torch.bool, device=dev)
+        fin_color = torch.zeros(b, 3, **f)
+        for s in range(k_sub):
+            was_active = st.active
+            st2 = bounce_step(st, prng.fold_in(k_bounce, s), scene, intersect_fn)
+            depth = depth + was_active.to(torch.int32)
+            finished = was_active & ~st2.active  # wrote its color this bounce
+            exhausted = st2.active & (depth >= max_depth)  # out of depth: black
+            fin_color = torch.where(finished[:, None], st2.color, fin_color)
+            fin_any = fin_any | finished
+            st = st2._replace(active=st2.active & ~exhausted)
+        # a lane finishes at most one ray per block, so every index but the dropped row is unique
+        out[torch.where(fin_any, lane_ray, total)] = fin_color
+        it += k_sub
+        n_live = int(st.active.sum())
+    per_ray = out[:total].view(spp, n_pix, 3)
+    sums = per_ray[0]
+    for s in range(1, spp):
+        sums = sums + per_ray[s]
+    if perm is not None:  # stream order -> pixel order
+        sums = sums[torch.as_tensor(inverse_permutation(perm.cpu().numpy()), device=dev)]
+    return sums.clone()
+
+
+def render_image_wavefront(scene: Scene, camera: Camera, seed: int = 0,
+                           spp: Optional[int] = None, batch: int = 32,
+                           pool_size: int = DEFAULT_POOL, use_pallas: bool = False,
+                           intersect_fn=None, progress_cb=None, ray_order: str = "row",
+                           resort_every: int = 0, refill_every: int = 1,
+                           device=None) -> np.ndarray:
+    """A full image on the reference engine, the linear mean [H, W, 3] f32
+    on the host: PRNGKey(seed), batch b starting at sample `done` keyed
+    fold_in(key, done).  use_pallas traces with K11 (closest_hit_pallas);
+    intersect_fn, e.g. make_culled_intersect(culled) over culled.scene,
+    overrides it.  ray_order "tiled" streams the pixels in 32x16 tiles."""
+    spp = spp if spp is not None else camera.samples_per_pixel
+    dev = resolve_device(device)
+    scene, camera = scene.to(dev), camera.to(dev)
+    if intersect_fn is None:
+        intersect_fn = closest_hit_pallas if use_pallas else closest_hit
+    perm = tile_permutation(camera.image_width, camera.image_height) \
+        if ray_order == "tiled" else None
+    key = prng.PRNGKey(seed)
+    acc = torch.zeros(camera.num_pixels, 3, dtype=torch.float32, device=dev)
+    done = 0
+    while done < spp:
+        n = min(batch, spp - done)
+        acc = acc + render_wavefront_sum(scene, camera, prng.fold_in(key, done), n, pool_size,
+                                         intersect_fn, perm, resort_every, refill_every)
+        done += n
+        if progress_cb is not None:
+            progress_cb(done, acc.cpu().numpy() / done)
+    img = acc.cpu().numpy() / spp
+    return img.reshape(camera.image_height, camera.image_width, 3)
 
 
 def render_wavefront_sum_fused(
@@ -118,12 +258,7 @@ def render_wavefront_sum_fused(
             return culled_fused_bounce(o, d, live, lane_ray, pack, seed)
 
         if resort_every:
-            csc = culled.scene
-            real = csc.radii > 0.0
-            safe_c = torch.where(real[:, None], csc.centers, 0.0)
-            safe_r = torch.where(real, csc.radii, 0.0)[:, None]
-            bb_lo = (safe_c - safe_r).amin(0).to(dev)
-            bb_hi = (safe_c + safe_r).amax(0).to(dev)
+            bb_lo, bb_hi = (x.to(dev) for x in scene_box(culled.scene))
     else:
         arrays = fused_scene_arrays(scene.to(dev))
 

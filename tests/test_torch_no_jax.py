@@ -37,7 +37,10 @@ def test_port_imports_no_jax():
               "ops.kernels.mega_kernel", "ops.kernels.mega_walk_bwd_kernel", "native",
               "ops.kernels.culled_kernel", "ops.kernels.mega_walk_kernel",
               "ops.kernels.mega_bwd_kernel", "ops.kernels.bounce_kernel",
-              "ops.kernels.culled_bounce_kernel", "render.order", "render.wavefront"):
+              "ops.kernels.culled_bounce_kernel", "render.order", "render.wavefront",
+              "core.prng", "core.rng", "core.interval", "core.ray", "ops.intersect",
+              "ops.materials", "ops.trace", "ops.kernels.intersect_kernel",
+              "render.renderer"):
         assert f"distributed_raytracer_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -81,3 +84,17 @@ def test_ray_and_pose_tracers_default_to_the_card(factory):
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+
+
+@pytest.mark.parametrize("entry", ["render_image", "render_image_wavefront"])
+def test_reference_engines_default_to_the_card(entry):
+    import distributed_raytracer_tpu_torch as dt
+    from distributed_raytracer_tpu_torch.models.presets import config1
+
+    scene, camera = config1()
+    camera = make_camera(image_width=4, max_depth=1)
+    if torch.cuda.is_available():
+        getattr(dt, entry)(scene, camera, spp=1)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            getattr(dt, entry)(scene, camera, spp=1)

@@ -88,10 +88,15 @@ def test_accum_state_round_trip(small, tmp_path):
 
 
 def test_other_engines_not_ported(small):
+    """Every engine of the JAX package is ported now: "scan" and
+    "wavefront" render (tests/test_torch_renderer.py holds them to JAX),
+    and only a name no package knows is refused."""
     scene, camera = small
     for engine in ("scan", "wavefront"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_progressive(scene, camera, spp=1, engine=engine, device="cpu")
+        state = render_progressive(scene, camera, spp=1, engine=engine, device="cpu")
+        assert state.engine == engine and np.isfinite(state.raw_sum).all()
+    with pytest.raises(ValueError, match="unknown engine"):
+        render_progressive(scene, camera, spp=1, engine="auto", device="cpu")
 
 
 def test_cuda_default_without_card_raises(small, monkeypatch):
