@@ -19,7 +19,11 @@ two engines (render_progressive(engine="wavefront") with the closest-hit
 kernel at 1200x675 depth 50, and over the culled field with the two
 culled closest-hit kernels; render_image, the scan engine, at 1200x675
 depth 50; the CLI on both), and prints one JSON line of kernel numbers
-and, last, one JSON line with the device.  Any failed
+and, last, one JSON line with the device.  K5 and K6, persistent blocks
+that refill and compact their rays (csrc/persist.cuh), are held to their
+plain versions bit for bit at the occupancy grid and at one block, and
+their lane use is reported beside the one that one thread per ray in
+static warps of 32 would have had on the same rays.  Any failed
 phase raises, so the exit code is nonzero and no result line is printed.
 Without a CUDA card it exits with code 2.
 
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -152,6 +157,33 @@ def require(cond, what) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ptxas_kernels(report: str) -> list:
+    """Each kernel entry of one nvcc -Xptxas -v report: its name (with
+    the bool template argument, if any), registers, spill stores and
+    loads (bytes) and static shared memory (bytes)."""
+    out = []
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        if m:
+            name = m.group(2)[:int(m.group(1))]
+            rest = m.group(2)[int(m.group(1)):]
+            if rest.startswith("ILb"):
+                name += "<true>" if rest.startswith("ILb1") else "<false>"
+            out.append(dict(kernel=name, registers=None, spill_stores=0, spill_loads=0, smem=0))
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[-1]["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def nvidia_smi(query: str) -> str:
@@ -371,7 +403,21 @@ def check_gradient_path(dev, presets, final, cam_main, k5_main) -> dict:
     plain_main, k6_plain_ms = cuda_timed(
         lambda: mk.mega_forward_camera_plain(*args_main, **kw_main))
     k6_err = same_tape("final 1200x675 depth 50", out_main, plain_main)
+    one = mk.mega_forward_camera_cuda(*args_main, grid=1, **kw_main)
+    torch.cuda.synchronize()
+    same_tape("final 1200x675 depth 50, one block", one, plain_main)
     del plain_main
+    bounces, steps = int(out_main.bounces), int(out_main.warp_steps)
+    require(bounces == int(out_main.lengths.sum()) == int(one.bounces),
+            "K6's bounce count differs from its lengths")
+    k6_lane = mk.lane_use(bounces, steps)
+    k6_static = mk.static_lane_use(out_main.lengths)
+    log(f"[lane] K6 camera final 1200x675 depth 50: {bounces:,} bounces in {steps:,} warp "
+        f"steps, lane use {k6_lane:.4f}; one thread per ray in static warps of 32 consecutive "
+        f"rays (the kernels before the persistent loop) {k6_static:.4f}; one block "
+        f"{mk.lane_use(int(one.bounces), int(one.warp_steps)):.4f}")
+    require(0.0 < k6_lane <= 1.0, f"K6 lane use {k6_lane} is not in (0, 1]")
+    del one
     c2_scene, c2_cam = presets.config2()
     shapes = [("config2 400x225 depth 50", c2_scene, c2_cam),
               ("final 1200x675 depth 8", final, cam_main.replace(max_depth=8))]
@@ -463,13 +509,15 @@ def check_gradient_path(dev, presets, final, cam_main, k5_main) -> dict:
 
     return {
         "mega_forward": dict(launches=launches["mega_forward"], max_abs_err=k6_err, ms=k6_ms,
-                             plain_ms=k6_plain_ms, flops=sweep["flops"], bytes=k6_bytes),
+                             plain_ms=k6_plain_ms, flops=sweep["flops"], bytes=k6_bytes,
+                             lane_use=k6_lane, lane_use_static=k6_static),
         "sweep": sweep,
         "mega_walk_bwd": dict(launches=launches["mega_walk_bwd"], max_abs_err=k8_err, ms=k8_ms,
                               plain_ms=k8_plain_ms, flops=k8_flops, bytes=k8_bytes,
                               max_norm_err=k8_norm_err),
         "record": dict(step_ms=step_ms, rays_per_s=n_pix / step_ms * 1e3, first_step_wall_ms=wall
-                       * 1e3, adam_losses=losses, tape_bytes_allocated=out_main.tape.numel() * 4,
+                       * 1e3, adam_losses=losses, k6_lane_use=k6_lane,
+                       k6_static_lane_use=k6_static, tape_bytes_allocated=out_main.tape.numel() * 4,
                        tape_bytes_written=rows * 128, tape_rows=rows, k8_rows=k8_rows,
                        sweep=sweep, k8_max_norm_err=k8_norm_err),
     }
@@ -831,8 +879,18 @@ def check_ray_pose_path(dev, final, cam_main) -> dict:
             cols, attrs, o_s, d_s, bounce_seed=BOUNCE_SEED, max_depth=depth))
         ray_err = same_tape(f"final, {RAY_TRACER_RAYS:,} strided rays, depth {depth}, vs plain "
                             f"({ray_plain_ms:.1f} ms)", got, want)
+        one = mk.mega_forward_cuda(cols, attrs, o_s, d_s, bounce_seed=BOUNCE_SEED,
+                                   max_depth=depth, grid=1)
+        same_tape(f"final, {RAY_TRACER_RAYS:,} strided rays, depth {depth}, one block vs plain",
+                  one, want)
+        del one
     out_ray = got
     del want
+    bounces, steps = int(out_ray.bounces), int(out_ray.warp_steps)
+    require(bounces == int(out_ray.lengths.sum()), "K6 ray mode's bounce count differs")
+    ray_lane, ray_static = mk.lane_use(bounces, steps), mk.static_lane_use(out_ray.lengths)
+    log(f"[lane] K6 ray mode, {RAY_TRACER_RAYS:,} strided rays depth 50: {bounces:,} bounces in "
+        f"{steps:,} warp steps, lane use {ray_lane:.4f}; static warps of 32 {ray_static:.4f}")
     pix = torch.arange(n_pix, dtype=torch.int64, device=dev)
     o_m, d_m = rays_of(pix)
     cam_kw = dict(bounce_seed=BOUNCE_SEED, cam_seed=CAM_SEED, pix0=0, n_valid=n_pix, w=w,
@@ -980,7 +1038,7 @@ def check_ray_pose_path(dev, final, cam_main) -> dict:
     return {
         "mega_forward_ray": dict(launches=ray_launches["mega_forward_ray"], max_abs_err=ray_err,
                                  ms=ray_ms, plain_ms=ray_plain_ms, flops=sweep["flops"],
-                                 bytes=ray_bytes),
+                                 bytes=ray_bytes, lane_use=ray_lane, lane_use_static=ray_static),
         "mega_bwd": dict(launches=ray_launches["mega_bwd"], max_abs_err=k7_err, ms=k7_ms,
                          plain_ms=k7_plain_ms, flops=k7_flops, bytes=k7_bytes,
                          max_norm_err=k7_norm),
@@ -1597,6 +1655,7 @@ def main() -> int:
         return 2
     from distributed_raytracer_tpu_torch.models import presets
     from distributed_raytracer_tpu_torch.ops.kernels import _build
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
     from distributed_raytracer_tpu_torch.ops.kernels import mega_render_kernel as mrk
     from distributed_raytracer_tpu_torch.render.image import read_ppm
     from distributed_raytracer_tpu_torch.render.progressive import (
@@ -1614,44 +1673,61 @@ def main() -> int:
     t0 = time.time()
     reports = _build.build(*KERNELS)
     log(f"[build] {len(KERNELS)} sources built in parallel in {time.time() - t0:.1f} s")
-    for name, report in reports.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build] {name}: {line.strip()}")
+    ptxas = {name: ptxas_kernels(report) for name, report in reports.items()}
+    for name, entries in ptxas.items():
+        for e in entries:
+            log(f"[build] {name}.cu {e['kernel']}: {e['registers']} registers, spill stores "
+                f"{e['spill_stores']} B, spill loads {e['spill_loads']} B, {e['smem']} B smem")
     dev = torch.device("cuda")
+    grids = {"mega_render": _build.occupancy_grid("mega_render", "mega_render_blocks_per_sm",
+                                                  dev),
+             "mega_forward": _build.occupancy_grid("mega_forward", "mega_forward_blocks_per_sm",
+                                                   dev, 0),
+             "mega_forward_ray": _build.occupancy_grid("mega_forward",
+                                                       "mega_forward_blocks_per_sm", dev, 1)}
+    log(f"[build] persistent grids (SMs x blocks per SM of 256 threads): {grids}")
 
-    def both(scene, cam, sample=0, bounce_seed=BOUNCE_SEED, cam_seed=CAM_SEED):
+    def both(scene, cam, sample=0, bounce_seed=BOUNCE_SEED, cam_seed=CAM_SEED, grid=None):
         cols, attrs, cam_row = mrk.prepare(scene, cam, dev)
         kw = dict(bounce_seed=bounce_seed, cam_seed=cam_seed,
                   rid_base=sample * cam.num_pixels, pix0=0, n_valid=cam.num_pixels,
                   n_cap=cam.num_pixels, w=cam.image_width, max_depth=cam.max_depth)
-        k_col, k_b = mrk.mega_render_cuda(cols, attrs, cam_row, **kw)
+        k_col, k_b, k_s = mrk.mega_render_cuda(cols, attrs, cam_row, grid=grid,
+                                               with_warp_steps=True, **kw)
         p_col, p_b = mrk.mega_render_plain(cols, attrs, cam_row, **kw)
         torch.cuda.synchronize()
-        return k_col, int(k_b), p_col, int(p_b), (cols, attrs, cam_row, kw)
+        return k_col, int(k_b), int(k_s), p_col, int(p_b), (cols, attrs, cam_row, kw)
 
-    # --- phase 2: kernel vs plain version on the card ---
+    def same_render(label, k, kb, p, pb):
+        """K5 and its plain version gave the same image and bounce count,
+        bit for bit."""
+        st = compare(label, k, p)
+        log(f"[check] {label}: bounces kernel {kb} plain {pb}")
+        require(torch.equal(k, p) and kb == pb, f"{label}: K5 differs from plain")
+        return st
+
+    # --- phase 2: kernel vs plain version on the card, bit for bit ---
     c2_scene, c2_cam = presets.config2()
-    k, kb, p, pb, _ = both(c2_scene, c2_cam)
-    st = compare("config2 400x225 depth 50", k, p)
-    require(st["mean"] < 5e-6 and st["over_5e4"] <= 0.001 * st["pixels"], st)
+    k, kb, _, p, pb, _ = both(c2_scene, c2_cam)
+    same_render("config2 400x225 depth 50", k, kb, p, pb)
     require(bool(torch.isfinite(k).all()), "config2 kernel image is not finite")
 
     final = presets.rtiow_final_scene(seed=0, pad_to=512)
     cam_main = presets.final_scene_camera(1200)
-    k, kb, p, pb, _ = both(final, cam_main.replace(max_depth=1))
-    st = compare("final 1200x675 depth 1", k, p)
-    require(st["max"] < 1e-6, st)
-    k, kb, p, pb, _ = both(final, cam_main.replace(max_depth=8))
-    st = compare("final 1200x675 depth 8", k, p)
-    require(st["over_5e4"] <= 0.02 * st["pixels"] and st["mean"] < 1.5e-3, st)
+    for depth in (1, 8):
+        k, kb, _, p, pb, _ = both(final, cam_main.replace(max_depth=depth))
+        same_render(f"final 1200x675 depth {depth}", k, kb, p, pb)
 
-    # the main-path shape: depth 50; the bounce counts must agree too
-    k, kb, p, pb, (cols, attrs, cam_row, kw) = both(final, cam_main)
-    st_main = compare("final 1200x675 depth 50", k, p)
-    require(st_main["over_5e4"] <= 0.02 * st_main["pixels"] and st_main["mean"] < 1.5e-3, st_main)
-    log(f"[check] bounces kernel {kb} plain {pb}")
-    require(abs(kb - pb) <= 0.001 * pb, (kb, pb))
+    # the main-path shape: depth 50, at the occupancy grid and at one block
+    # (one pool refilled some 9,000 times)
+    k, kb, ks, p, pb, (cols, attrs, cam_row, kw) = both(final, cam_main)
+    st_main = same_render("final 1200x675 depth 50", k, kb, p, pb)
+    k5_lane = mk.lane_use(kb, ks)
+    k1, k1b, k1s, _, _, _ = both(final, cam_main, grid=1)
+    same_render("final 1200x675 depth 50, one block", k1, k1b, p, pb)
+    log(f"[lane] K5 final 1200x675 depth 50: {kb:,} bounces in {ks:,} warp steps, lane use "
+        f"{k5_lane:.4f} (grid {grids['mega_render']}); one block {mk.lane_use(k1b, k1s):.4f}")
+    del k1, p
 
     # --- timing at the main-path shape ---
     mrk.mega_render_cuda(cols, attrs, cam_row, **kw)  # warm
@@ -1734,7 +1810,9 @@ def main() -> int:
         replaces=REPLACES["mega_render"], launches=launches, max_abs_err=st_main["max"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(ops_s, bytes_s) * 1e3,
         bound_by="operations" if ops_s >= bytes_s else "bytes", library_ms=None,
-        library_note=NO_LIBRARY["mega_render"],
+        library_note=NO_LIBRARY["mega_render"], lane_use=k5_lane,
+        # the same rays as K6's at the main path (sample 0), so the same lengths
+        lane_use_static=grad["mega_forward"]["lane_use_static"],
     )]
     for name, g in [(n, grad[n]) for n in ("mega_forward", "mega_walk_bwd")] + [
             (n, walk[n]) for n in ("mega_walk", "mega_walk_record", "mega_walk_bwd_global")] + [
@@ -1753,14 +1831,19 @@ def main() -> int:
             plain_ms=g["plain_ms"], bound_ms=max(ops_s, bytes_s) * 1e3,
             bound_by="operations" if ops_s >= bytes_s else "bytes", library_ms=None,
             library_note=NO_LIBRARY[src]))
-        if "max_norm_err" in g:  # g_pm's columns span orders of magnitude
-            kernels[-1]["max_norm_err"] = g["max_norm_err"]
+        for key in ("max_norm_err",  # g_pm's columns span orders of magnitude
+                    "lane_use", "lane_use_static"):  # the persistent kernels (K5, K6)
+            if key in g:
+                kernels[-1][key] = g[key]
     for kd in kernels:
+        lane = (f", lane use {kd['lane_use']:.4f} (static warps {kd['lane_use_static']:.4f})"
+                if "lane_use" in kd else "")
         log(f"[kernel] {kd['name']}: {kd['ms']:.3f} ms, bound {kd['bound_ms']:.4f} ms "
             f"({kd['bound_by']}), plain {kd['plain_ms']:.1f} ms, launches {kd['launches']}, "
-            f"max_abs_err {kd['max_abs_err']:.3e}")
+            f"max_abs_err {kd['max_abs_err']:.3e}{lane}")
     if args.record:
-        record = dict(card=smi, kernels=kernels, mean_bounces_per_ray=kb / n_pix,
+        record = dict(card=smi, kernels=kernels, ptxas=ptxas, grids=grids,
+                      mean_bounces_per_ray=kb / n_pix,
                       main_path_ms_per_sample=wall * 1e3 / 4, gradient_path=grad["record"],
                       walk_path=walk["record"], ray_pose_path=rays["record"],
                       fused_path=fused["record"], reference_path=ref["record"],

@@ -1,15 +1,16 @@
-// One ray traced to its end: the bounce loop of the mega render kernel
-// (csrc/mega_render.cu), the recording forward (csrc/mega_forward.cu, in
-// camera and ray mode) and the walk kernel (csrc/mega_walk.cu), written
-// once.
+// The bounce of the mega render kernel (csrc/mega_render.cu), the
+// recording forward (csrc/mega_forward.cu, in camera and ray mode) and the
+// walk kernel (csrc/mega_walk.cu), and the scene accessors they share.
 //
-// trace_from<RECORD, Scene> runs the loop from a given primary ray,
-// trace_ray from the camera's.  RECORD = false is the render kernels' loop;
-// RECORD = true runs the same loop with the recording shade<true>
-// (bounce.cuh) and also writes one tape row per bounce (tape.cuh).  Both
-// compute the same values in the same order, so at equal seeds their
-// colors are equal bit for bit.  The Scene accessor says where the scene
-// lives and how a bounce finds its closest hit:
+// trace_from<RECORD, Scene> runs the loop from a given primary ray to the
+// ray's end, trace_ray from the camera's (the walk kernel, one thread per
+// ray); bounce_once runs the loop's body, one bounce of one ray, for
+// persist.cuh's persistent blocks (K5 and K6).  RECORD = false
+// is the render kernels' bounce; RECORD = true runs the same bounce with
+// the recording shade<true> (bounce.cuh) and also writes its tape row
+// (tape.cuh).  Both compute the same values in the same order, so at
+// equal seeds their colors are equal bit for bit.  The Scene accessor
+// says where the scene lives and how a bounce finds its closest hit:
 //
 //   ResidentScene (K5, K6): the whole scene staged in shared memory, every
 //     sphere swept;
@@ -201,6 +202,78 @@ __device__ __forceinline__ int trace_from(Scene& sc, float o[3], float d[3], uin
     atten[2] = atten[2] * at[2];
   }  // a ray still alive at max_depth contributes black
   return depth;
+}
+
+// One bounce of the ray (o, d) at depth `depth` with throughput atten
+// (draws keyed by rid and bounce_seed + depth * 65537): sweep + shade,
+// the body of trace_from's loop above, value for value, for a loop that
+// runs one bounce per step (persist.cuh: K5 and K6).  trace_from keeps
+// its own copy, so that the walk kernel (K9) compiles as it did: with its
+// loop calling this function, K9 record took 60 registers instead of 64.
+// Returns true when the ray finished, with its terminal color in co (the
+// caller multiplies by atten); else o and d hold the next ray and atten
+// has taken this bounce's attenuation.
+//
+// RECORD: also writes the bounce's tape row at row_dst (tape.cuh): the
+// pre-bounce o, d and atten, the four draws, the contribution (the color
+// on the finishing row, else 0), the winner's parameters (zero on a
+// miss), the winner's index in the scene (the slot, for the walk), the ray
+// index `ray` and the flags.
+template <bool RECORD, class Scene>
+__device__ __forceinline__ bool bounce_once(Scene& sc, float o[3], float d[3], float atten[3],
+                                            int depth, uint32_t rid, uint32_t bounce_seed,
+                                            float co[3], float* row_dst = nullptr,
+                                            int ray = 0) {
+  float row[TAPE_COLS];
+  if (RECORD) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      row[T_O + k] = o[k];
+      row[T_D + k] = d[k];
+      row[T_AT + k] = atten[k];
+    }
+  }
+  const float a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+  const float inv_a = 1.0f / a;
+  int bi;
+  const float t = sc.sweep(o[0], o[1], o[2], d[0], d[1], d[2], a, inv_a, &bi);
+  const uint32_t seed = bounce_seed + (uint32_t)depth * 65537u;
+  float at[3], rec[4];
+  if (RECORD) bounce_draws(rid, seed, rec);
+  const bool fin = shade<RECORD>(o, d, a, t, sc, bi, rid, seed, at, co, rec);
+  if (RECORD) {
+    const bool hit = t < DR_BIG * 0.5f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      row[T_RU + k] = rec[k];
+      row[T_CO + k] = fin ? atten[k] * co[k] : 0.0f;
+    }
+    row[T_U] = rec[3];
+    const float4 s = hit ? sc.sphere(bi) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    row[T_CW + 0] = s.x;
+    row[T_CW + 1] = s.y;
+    row[T_CW + 2] = s.z;
+    row[T_RW] = hit ? sc.attr(ATT_RR, bi) : 0.0f;
+    row[T_AW + 0] = hit ? sc.attr(ATT_AR, bi) : 0.0f;
+    row[T_AW + 1] = hit ? sc.attr(ATT_AG, bi) : 0.0f;
+    row[T_AW + 2] = hit ? sc.attr(ATT_AB, bi) : 0.0f;
+    row[T_FW] = hit ? sc.attr(ATT_FZ, bi) : 0.0f;
+    row[T_IW] = hit ? sc.attr(ATT_IO, bi) : 0.0f;
+    row[T_MT] = hit ? sc.attr(ATT_MT, bi) : 0.0f;
+    row[T_IDX] = __int_as_float(hit ? bi : 0);
+    row[T_RAY] = __int_as_float(ray);
+    row[T_FLG] = __int_as_float((hit ? F_HIT : 0) | F_ACT | (depth == 0 ? F_TAKE : 0) |
+                                (fin ? F_FIN : 0));
+#pragma unroll
+    for (int k = T_FLG + 1; k < TAPE_COLS; ++k) row[k] = 0.0f;
+    tape_store(row_dst, row);
+  }
+  if (!fin) {
+    atten[0] = atten[0] * at[0];
+    atten[1] = atten[1] * at[1];
+    atten[2] = atten[2] * at[2];
+  }
+  return fin;
 }
 
 // trace_from for the camera ray of pixel pix (camera draws keyed by rid).

@@ -17,6 +17,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = [
@@ -29,6 +31,7 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_grids: Dict[tuple, int] = {}
 _lock = threading.Lock()
 
 
@@ -88,3 +91,22 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launcher."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def occupancy_grid(name: str, symbol: str, device: torch.device, *args: int) -> int:
+    """The grid of a persistent kernel of `csrc/<name>.cu`: the card's SMs
+    times the blocks per SM that `symbol(*args)` reads from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; cached per device."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    key = (name, symbol, args, index)
+    if key not in _grids:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(index):
+            per_sm = fn(*args)
+        if per_sm < 1:
+            raise RuntimeError(f"{symbol}: CUDA error {-per_sm} (or no block fits an SM)")
+        _grids[key] = per_sm * torch.cuda.get_device_properties(index).multi_processor_count
+    return _grids[key]

@@ -63,6 +63,26 @@ class MegaOut(NamedTuple):
     lengths: torch.Tensor  # [R] int32 rows per ray
     colors: torch.Tensor   # [R, 3] f32
     bounces: torch.Tensor  # [1] int64 (ray, bounce) sweeps run
+    # [1] int64 (warp, step) pairs of the kernel that swept; None from the
+    # plain versions, which have no warps
+    warp_steps: Optional[torch.Tensor] = None
+
+
+def lane_use(bounces: int, warp_steps: int, warp: int = 32) -> float:
+    """The share of the sweeping warps' lanes that held a live ray: the
+    bounces run over `warp` x the (warp, step) pairs that swept."""
+    return bounces / (warp * warp_steps) if warp_steps else 0.0
+
+
+def static_lane_use(lengths: torch.Tensor, warp: int = 32) -> float:
+    """The lane use of one thread per ray in static warps of `warp`
+    consecutive rays (K5 and K6 before the persistent loop), each of which
+    sweeps until its longest ray ends: the bounces over `warp` x the sum
+    of each warp's longest length.  A last partial warp counts whole."""
+    lengths = lengths.to(torch.int64).flatten()
+    padded = torch.nn.functional.pad(lengths, (0, (-lengths.numel()) % warp))
+    return lane_use(int(lengths.sum()), int(padded.view(-1, warp).max(dim=1).values.sum()),
+                    warp)
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
@@ -123,37 +143,43 @@ def mega_forward_plain(cols, attrs, ray_o, ray_d, *, bounce_seed: int, max_depth
 
 def _argtypes(fn):
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    fn.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, i, p, p, p, p, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(cols, attrs, n: int, cam_row, pixel_ids, ray_o, ray_d, *, bounce_seed: int,
-            cam_seed: int, pix0: int, n_valid: int, w: int, max_depth: int) -> MegaOut:
+            cam_seed: int, pix0: int, n_valid: int, w: int, max_depth: int,
+            grid: Optional[int]) -> MegaOut:
     """Launch csrc/mega_forward.cu in camera mode (cam_row given) or ray
-    mode (ray_o, ray_d given) on the current stream."""
+    mode (ray_o, ray_d given) on the current stream, on at most `grid`
+    blocks (by default as many as fit the card at once)."""
     if n_valid < 1 or max_depth < 1:
         raise ValueError(f"need n_valid >= 1 and max_depth >= 1, got {n_valid}, {max_depth}")
     dev = cols.device
+    ray_mode = int(ray_o is not None)
+    grid = grid or _build.occupancy_grid("mega_forward", "mega_forward_blocks_per_sm", dev,
+                                         ray_mode)
     tape = torch.empty(max_depth, n_valid, TAPE_COLS, dtype=torch.float32, device=dev)
     lengths = torch.empty(n_valid, dtype=torch.int32, device=dev)
     colors = torch.empty(n_valid, 3, dtype=torch.float32, device=dev)
-    bounces = torch.zeros(1, dtype=torch.int64, device=dev)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)  # bounces, warp steps, next ray
     ptr = lambda x: None if x is None else x.data_ptr()
     fn = _argtypes(_build.load("mega_forward").mega_forward_launch)
     err = fn(cols.data_ptr(), attrs.data_ptr(), n, ptr(cam_row), ptr(pixel_ids), ptr(ray_o),
              ptr(ray_d), wrap_i32(bounce_seed), wrap_i32(cam_seed), pix0, n_valid, w,
              max_depth, tape.data_ptr(), lengths.data_ptr(), colors.data_ptr(),
-             bounces.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+             counts.data_ptr(), grid, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mega_forward_launch")
-    return MegaOut(tape, lengths, colors, bounces)
+    return MegaOut(tape, lengths, colors, counts[0:1], counts[1:2])
 
 
 def mega_forward_camera_cuda(cols, attrs, cam_row, pixel_ids: Optional[torch.Tensor], *,
                              bounce_seed: int, cam_seed: int, pix0: int, n_valid: int, w: int,
-                             max_depth: int) -> MegaOut:
+                             max_depth: int, grid: Optional[int] = None) -> MegaOut:
     """Launch csrc/mega_forward.cu in camera mode on the current stream (no
-    sync).  Same arguments and results as mega_forward_camera_plain."""
+    sync).  Same arguments and results as mega_forward_camera_plain, and
+    the kernel's warp steps; grid as _launch's."""
     n = check_sweep_args(cols, attrs, cam_row)
     if pixel_ids is not None and (pixel_ids.device != cols.device or pixel_ids.dtype != torch.int32
                                   or tuple(pixel_ids.shape) != (n_valid,)
@@ -161,7 +187,8 @@ def mega_forward_camera_cuda(cols, attrs, cam_row, pixel_ids: Optional[torch.Ten
         raise ValueError(f"pixel_ids must be a contiguous int32 tensor of shape ({n_valid},) "
                          f"on {cols.device}")
     out = _launch(cols, attrs, n, cam_row, pixel_ids, None, None, bounce_seed=bounce_seed,
-                  cam_seed=cam_seed, pix0=pix0, n_valid=n_valid, w=w, max_depth=max_depth)
+                  cam_seed=cam_seed, pix0=pix0, n_valid=n_valid, w=w, max_depth=max_depth,
+                  grid=grid)
     mega_forward_camera_cuda.launches += 1
     return out
 
@@ -170,9 +197,10 @@ mega_forward_camera_cuda.launches = 0
 
 
 def mega_forward_cuda(cols, attrs, ray_o, ray_d, *, bounce_seed: int,
-                      max_depth: int) -> MegaOut:
+                      max_depth: int, grid: Optional[int] = None) -> MegaOut:
     """Launch csrc/mega_forward.cu in ray mode on the current stream (no
-    sync).  Same arguments and results as mega_forward_plain."""
+    sync).  Same arguments and results as mega_forward_plain, and the
+    kernel's warp steps; grid as _launch's."""
     n = check_sweep_args(cols, attrs, None)
     r = ray_o.shape[0]
     for name, x in (("ray_o", ray_o), ("ray_d", ray_d)):
@@ -181,7 +209,7 @@ def mega_forward_cuda(cols, attrs, ray_o, ray_d, *, bounce_seed: int,
             raise ValueError(f"{name} must be a contiguous float32 tensor of shape ({r}, 3) "
                              f"on {cols.device}")
     out = _launch(cols, attrs, n, None, None, ray_o, ray_d, bounce_seed=bounce_seed, cam_seed=0,
-                  pix0=0, n_valid=r, w=1, max_depth=max_depth)
+                  pix0=0, n_valid=r, w=1, max_depth=max_depth, grid=grid)
     mega_forward_cuda.launches += 1
     return out
 

@@ -143,7 +143,7 @@ def trace_plain(cols, attrs, o, d, rid, *, bounce_seed: int, max_depth: int,
 
 def _argtypes(fn):
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, i, i, ctypes.c_uint, i, i, i, i, i, p, p, p]
+    fn.argtypes = [p, p, i, p, i, i, ctypes.c_uint, i, i, i, i, i, p, p, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -168,23 +168,31 @@ def check_sweep_args(cols, attrs, cam_row) -> int:
 
 def mega_render_cuda(cols, attrs, cam_row, *, bounce_seed: int, cam_seed: int,
                      rid_base: int, pix0: int, n_valid: int, n_cap: int, w: int,
-                     max_depth: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                     max_depth: int, grid: Optional[int] = None,
+                     with_warp_steps: bool = False):
     """Launch csrc/mega_render.cu on the current stream (no sync).  Same
     arguments and results as mega_render_plain; the bounce count is
-    summed by the kernel."""
+    summed by the kernel.  grid: the most blocks of the persistent kernel
+    (by default as many as fit the card at once; 1 makes one block trace
+    every ray).  with_warp_steps: also return the [1] int64 count of
+    (warp, step) pairs that swept, for lane_use."""
     n = check_sweep_args(cols, attrs, cam_row)
     if not 0 <= n_valid <= n_cap:
         raise ValueError(f"need 0 <= n_valid <= n_cap, got {n_valid}, {n_cap}")
-    colors = torch.empty(n_cap, 3, dtype=torch.float32, device=cols.device)
-    bounces = torch.zeros(1, dtype=torch.int64, device=cols.device)
+    dev = cols.device
+    grid = grid or _build.occupancy_grid("mega_render", "mega_render_blocks_per_sm", dev)
+    colors = torch.empty(n_cap, 3, dtype=torch.float32, device=dev)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)  # bounces, warp steps, next ray
     fn = _argtypes(_build.load("mega_render").mega_render_launch)
     err = fn(cols.data_ptr(), attrs.data_ptr(), n, cam_row.data_ptr(),
              wrap_i32(bounce_seed), wrap_i32(cam_seed), rid_base & _MASK32,
              pix0, n_valid, n_cap, w, max_depth, colors.data_ptr(),
-             bounces.data_ptr(), torch.cuda.current_stream(cols.device).cuda_stream)
+             counts.data_ptr(), grid, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mega_render_launch")
     mega_render_cuda.launches += 1
-    return colors, bounces
+    if with_warp_steps:
+        return colors, counts[0:1], counts[1:2]
+    return colors, counts[0:1]
 
 
 mega_render_cuda.launches = 0

@@ -410,3 +410,102 @@ def test_fused_engine_on_card(card):
     walked = wavefront.render_wavefront_sum_fused(scene, camera, 2, 11, 22, pool_size=512,
                                                   culled=culled, resort_every=2, **kw)
     assert torch.equal(dense, walked)
+
+
+# --- K5 and K6 as persistent, compacting blocks (csrc/persist.cuh) ---
+# A grid of one block makes one pool trace every ray (refilled from the
+# counter hundreds of times); the default grid is as many blocks as fit
+# the card.  Both must give the plain version's colors, tape rows,
+# lengths and bounce count bit for bit.  The final scene at 70x39 has
+# 2,730 rays, a multiple of neither 32 nor 256.
+
+
+def _persist_camera(depth):
+    return presets.final_scene_camera(70).replace(max_depth=depth)
+
+
+@pytest.mark.parametrize("depth", [1, 50])
+@pytest.mark.parametrize("grid", [None, 1])
+def test_persistent_render_matches_plain_on_card(card, depth, grid):
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = _persist_camera(depth)
+    cols, attrs, cam_row = mrk.prepare(scene, camera, card)
+    n = camera.num_pixels
+    assert n % 32 and n % 256
+    kw = dict(bounce_seed=123456, cam_seed=987654, rid_base=3 * n, pix0=0, n_valid=n,
+              n_cap=n, w=camera.image_width, max_depth=depth)
+    got, got_b, steps = mrk.mega_render_cuda(cols, attrs, cam_row, grid=grid,
+                                             with_warp_steps=True, **kw)
+    want, want_b = mrk.mega_render_plain(cols, attrs, cam_row, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(got_b) == int(want_b)
+    assert 0.0 < mk.lane_use(int(got_b), int(steps)) <= 1.0
+
+
+@pytest.mark.parametrize("max_depth", [0, 8])
+def test_persistent_render_shard_on_card(card, max_depth):
+    """n_valid < n_cap with a pix0 offset: rows past n_valid are zero, the
+    rest the plain version's (all zero at max_depth 0)."""
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = _persist_camera(max(max_depth, 1))
+    cols, attrs, cam_row = mrk.prepare(scene, camera, card)
+    kw = dict(bounce_seed=5, cam_seed=6, rid_base=(1 << 31) + 17, pix0=100, n_valid=1000,
+              n_cap=1300, w=camera.image_width, max_depth=max_depth)
+    for grid in (None, 1):
+        got, got_b = mrk.mega_render_cuda(cols, attrs, cam_row, grid=grid, **kw)
+        want, want_b = mrk.mega_render_plain(cols, attrs, cam_row, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.count_nonzero(got[1000:]) == 0
+        assert int(got_b) == int(want_b)
+
+
+def _persist_forward(mode, scene, camera, card, grid):
+    """(K6 out, plain out) in camera mode (iota or explicit pixel ids) or
+    ray mode (camera_rays_host's rays of every pixel)."""
+    (cols, attrs, cam_row), kw = _fwd_args(scene, camera, card)
+    if mode == "ray":
+        o, d = _camera_rays(camera, card)
+        args = (cols, attrs, o, d)
+        fkw = dict(bounce_seed=123456, max_depth=camera.max_depth)
+        return mk.mega_forward_cuda(*args, grid=grid, **fkw), mk.mega_forward_plain(*args, **fkw)
+    ids = None
+    if mode == "ids":  # 1,000 pixels in a scattered order
+        ids = torch.randperm(camera.num_pixels, generator=torch.Generator().manual_seed(4))[:1000]
+        ids = ids.to(torch.int32).to(card)
+        kw["n_valid"] = 1000
+    return (mk.mega_forward_camera_cuda(cols, attrs, cam_row, ids, grid=grid, **kw),
+            mk.mega_forward_camera_plain(cols, attrs, cam_row, ids, **kw))
+
+
+@pytest.mark.parametrize("mode", ["iota", "ids", "ray"])
+@pytest.mark.parametrize("depth", [1, 50])
+@pytest.mark.parametrize("grid", [None, 1])
+def test_persistent_forward_matches_plain_on_card(card, mode, depth, grid):
+    scene = presets.rtiow_final_scene(pad_to=512)
+    got, want = _persist_forward(mode, scene, _persist_camera(depth), card, grid)
+    torch.cuda.synchronize()
+    assert torch.equal(got.lengths, want.lengths)
+    assert torch.equal(_written_rows(got), _written_rows(want))
+    assert torch.equal(got.colors, want.colors)
+    assert int(got.bounces) == int(want.bounces) == int(got.lengths.sum())
+    assert 0.0 < mk.lane_use(int(got.bounces), int(got.warp_steps)) <= 1.0
+
+
+def test_persistent_lane_use_on_card(card):
+    """The persistent loop keeps more lanes busy than static warps of 32
+    consecutive rays would on the same rays (final scene 240x135, depth
+    50), and K5 and K6 count the same bounces."""
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = presets.final_scene_camera(240)
+    (cols, attrs, cam_row), kw = _fwd_args(scene, camera, card)
+    out = mk.mega_forward_camera_cuda(cols, attrs, cam_row, None, **kw)
+    colors, bounces, steps = mrk.mega_render_cuda(
+        cols, attrs, cam_row, rid_base=0, n_cap=camera.num_pixels, with_warp_steps=True,
+        **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(colors, out.colors) and int(bounces) == int(out.bounces)
+    static = mk.static_lane_use(out.lengths)
+    for b, s in ((bounces, steps), (out.bounces, out.warp_steps)):
+        assert static < mk.lane_use(int(b), int(s)) <= 1.0

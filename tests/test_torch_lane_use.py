@@ -1,0 +1,62 @@
+"""The lane-use reckonings of K5 and K6 (ops/kernels/mega_kernel.py).
+
+static_lane_use is the share of lanes that one thread per ray in static
+warps of 32 consecutive rays keeps busy, reckoned from the rays' bounce
+counts; lane_use is the persistent kernels' own, from their bounce and
+warp-step counters.  chip_smoke.py reports both at the main path.  These
+run on the CPU on synthetic lengths with known answers; no JAX."""
+
+import pytest
+import torch
+
+from distributed_raytracer_tpu_torch.ops.kernels.mega_kernel import lane_use, static_lane_use
+
+
+@pytest.mark.parametrize("lengths,want", [
+    # one warp, every ray 3 bounces: every lane busy
+    ([3] * 32, 1.0),
+    # one long ray holds its warp: 31 x 1 + 50 over 32 x 50
+    ([1] * 31 + [50], 81 / 1600),
+    # two warps and a partial third, which counts as a whole warp:
+    # (31 + 5 + 64 + 30) / (32 x (5 + 2 + 3))
+    ([1] * 31 + [5] + [2] * 32 + [3] * 10, 130 / 320),
+    # rays that ran no bounce (n_valid < n_cap rows) and a warp of them
+    ([0] * 32 + [4] * 16 + [0] * 16, 64 / 128),
+])
+def test_static_lane_use(lengths, want):
+    got = static_lane_use(torch.tensor(lengths, dtype=torch.int32))
+    assert got == pytest.approx(want, rel=1e-12)
+
+
+def test_static_lane_use_of_the_warp_width():
+    lengths = torch.tensor([1, 2, 3, 4, 5, 6, 7, 8])
+    # warps of 4: (1+2+3+4 + 5+6+7+8) / (4 x (4 + 8))
+    assert static_lane_use(lengths, warp=4) == pytest.approx(36 / 48, rel=1e-12)
+    assert static_lane_use(lengths, warp=1) == 1.0
+
+
+def test_static_lane_use_without_bounces():
+    assert static_lane_use(torch.zeros(64, dtype=torch.int32)) == 0.0
+
+
+@pytest.mark.parametrize("bounces,steps,want", [
+    (320, 10, 1.0),         # every swept warp full
+    (2372645, 100000, 2372645 / 3200000),
+    (7, 1, 7 / 32),         # one warp, seven rays
+    (0, 0, 0.0),            # nothing swept
+])
+def test_lane_use_from_counters(bounces, steps, want):
+    assert lane_use(bounces, steps) == pytest.approx(want, rel=1e-12)
+
+
+def test_static_warps_bound_the_counters():
+    """On any lengths, static warps of 32 never beat a schedule that
+    packs the same bounces into full warps: static_lane_use is at most
+    the lane use of ceil(bounces / 32) full warp steps."""
+    g = torch.Generator().manual_seed(0)
+    for _ in range(10):
+        n = int(torch.randint(1, 300, (1,), generator=g))
+        lengths = torch.randint(0, 51, (n,), generator=g)
+        b = int(lengths.sum())
+        packed = lane_use(b, -(-b // 32))
+        assert static_lane_use(lengths) <= packed <= 1.0
