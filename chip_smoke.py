@@ -19,13 +19,17 @@ two engines (render_progressive(engine="wavefront") with the closest-hit
 kernel at 1200x675 depth 50, and over the culled field with the two
 culled closest-hit kernels; render_image, the scan engine, at 1200x675
 depth 50; the CLI on both), and prints one JSON line of kernel numbers
-and, last, one JSON line with the device.  K5 and K6, persistent blocks
-that refill and compact their rays (csrc/persist.cuh), are held to their
-plain versions bit for bit at the occupancy grid and at one block, and
-their lane use is reported beside the one that one thread per ray in
-static warps of 32 would have had on the same rays.  Any failed
-phase raises, so the exit code is nonzero and no result line is printed.
-Without a CUDA card it exits with code 2.
+and, last, one JSON line with the device.  K5, K6 and K9, persistent
+blocks that refill and compact their rays (csrc/persist.cuh), are held to
+their plain versions bit for bit at the occupancy grid and at one block
+(K9 on a reduced image), and their lane use is reported beside the one
+that one thread per ray in static warps of 32 would have had on the same
+rays; K9 also reports its sweep lane use (how many of the lanes sweeping
+a chunk admitted it).  The reverse walks K8 and K7, persistent blocks of
+reverse carries (csrc/walk_bwd.cuh), are held to their plain versions
+within their bands at both grids, and their lane use is reported.  Any
+failed phase raises, so the exit code is nonzero and no result line is
+printed.  Without a CUDA card it exits with code 2.
 
     python3 chip_smoke.py --record out/chip_smoke.json
 
@@ -301,6 +305,20 @@ def walk_work(out, n_sph: int):
     return flops * REVERSE_FACTOR, nbytes, n_used
 
 
+def finished_static_lane_use(out) -> float:
+    """The one-thread-per-ray reckoning for a reverse walk of this tape
+    (the kernels before the persistent walk): static_lane_use of the
+    lengths of the rays that finished, the others counted as no rows.  A
+    ray's walk can end before its first row once its carry vanishes, so
+    this uses the lengths as the rows walked."""
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
+
+    depth = (out.lengths.long() - 1).clamp(min=0)
+    last = out.tape[depth, torch.arange(out.lengths.shape[0], device=out.tape.device)]
+    fin = (last[:, mk.T_FLG].contiguous().view(torch.int32) & mk.F_FIN) != 0
+    return mk.static_lane_use(torch.where(fin & (out.lengths > 0), out.lengths, 0))
+
+
 def grazing_rays(out, ratio: float = 1e-3) -> torch.Tensor:
     """[R] bool: the rays with a grazing hit, a hit row whose discriminant
     disc = h*h - a*c is below ratio * h*h (float64, from the recorded row).
@@ -323,24 +341,46 @@ def grazing_rays(out, ratio: float = 1e-3) -> torch.Tensor:
     return graz
 
 
+def walk_lane(label, stats, one_stats) -> float:
+    """The reverse walk's lane use from its WALK_STATS (rows, warp steps),
+    printed with the one-block run's; the rows walked are the same at any
+    grid (a ray's carry is not a sum)."""
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
+
+    rows, steps = (int(x) for x in stats.tolist())
+    one_rows, one_steps = (int(x) for x in one_stats.tolist())
+    lane = mk.lane_use(rows, steps)
+    log(f"[lane] {label}: {rows:,} rows walked in {steps:,} warp steps, lane use {lane:.4f}; "
+        f"one block {mk.lane_use(one_rows, one_steps):.4f}")
+    require(rows == one_rows, f"{label}: rows walked differ with the grid ({rows} vs {one_rows})")
+    require(0.0 < lane <= 1.0, f"{label}: lane use {lane} is not in (0, 1]")
+    return lane
+
+
 def k8_check(dev, label, out, n, band, referee=False):
     """K8 against its plain version on one tape, each column of g_pm
-    normalized by its max (run twice, for the atomics' run-to-run
-    spread); with referee, both against the same walk in float64.
-    Returns (max abs err, max normalized err, plain ms, g_color)."""
+    normalized by its max (run twice at the occupancy grid, for the
+    atomics' run-to-run spread, and once at one block); with referee,
+    both against the same walk in float64.  Returns (max abs err, max
+    normalized err, plain ms, g_color, lane use)."""
     from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_bwd_kernel as wbk
 
     g = torch.randn(out.lengths.shape[0], 3,
                     generator=torch.Generator().manual_seed(3)).to(dev)
-    got = wbk.mega_walk_backward_cuda(out.tape, out.lengths, g, n)
+    got, stats = wbk.mega_walk_backward_cuda(out.tape, out.lengths, g, n, with_stats=True)
     again = wbk.mega_walk_backward_cuda(out.tape, out.lengths, g, n)
+    one, one_stats = wbk.mega_walk_backward_cuda(out.tape, out.lengths, g, n, grid=1,
+                                                 with_stats=True)
     want, plain_ms = cuda_timed(lambda: wbk.mega_walk_backward_plain(out.tape, out.lengths,
                                                                      g, n))
     err = col_err(got[:n], want[:n])
+    one_err = float(col_err(one[:n], want[:n]).max())
     fmt = lambda e: [f"{x:.2e}" for x in e.tolist()]
     log(f"[k8] {label}: per-column normalized err {fmt(err)}, run-to-run "
         f"{float(col_err(again[:n], got[:n]).max()):.2e} normalized "
-        f"({float((got - again).abs().max()):.3e} abs), plain {plain_ms:.1f} ms")
+        f"({float((got - again).abs().max()):.3e} abs), one block {one_err:.2e}, plain "
+        f"{plain_ms:.1f} ms")
+    lane = walk_lane(f"K8 {label}", stats, one_stats)
     if referee:  # both f32 walks against the same walk in float64
         exact = wbk.mega_walk_backward_plain(out.tape, out.lengths, g, n,
                                              dtype=torch.float64)[:n]
@@ -356,12 +396,14 @@ def k8_check(dev, label, out, n, band, referee=False):
         log(f"[k8] {label}: {int(graz.sum()):,} of {graz.numel():,} rays have a grazing hit "
             f"(disc < 1e-3 h^2); without them, vs the float64 walk, kernel "
             f"{fmt(col_err(k_calm.double(), exact))}, plain {fmt(col_err(p_calm.double(), exact))}")
-    require(bool(torch.isfinite(got).all()), f"{label}: K8 gradients not finite")
+    require(bool(torch.isfinite(got).all() and torch.isfinite(one).all()),
+            f"{label}: K8 gradients not finite")
     require(float(err.max()) < band, f"{label}: K8 vs plain {float(err.max()):.3e}")
-    return float((got[:n] - want[:n]).abs().max()), float(err.max()), plain_ms, g
+    require(one_err < band, f"{label}: K8 at one block vs plain {one_err:.3e}")
+    return float((got[:n] - want[:n]).abs().max()), float(err.max()), plain_ms, g, lane
 
 
-def check_gradient_path(dev, presets, final, cam_main, k5_main) -> dict:
+def check_gradient_path(dev, presets, final, cam_main, k5_main, peak: float) -> dict:
     """Phases 6-8: the recording forward (K6) against the render kernel
     and its plain version, the reverse walk (K8) against its plain
     version, and the training step at full width."""
@@ -437,9 +479,8 @@ def check_gradient_path(dev, presets, final, cam_main, k5_main) -> dict:
         k8_check(dev, label, out, scene.num_spheres, K8_BAND)
     del tapes
     # the main-path shape: the numbers the kernel line reports
-    k8_err, k8_norm_err, k8_plain_ms, g_main = k8_check(dev, "final 1200x675 depth 50",
-                                                        out_main, n_sph, K8_MAIN_BAND,
-                                                        referee=True)
+    k8_err, k8_norm_err, k8_plain_ms, g_main, k8_lane = k8_check(
+        dev, "final 1200x675 depth 50", out_main, n_sph, K8_MAIN_BAND, referee=True)
 
     # --- phase 8: the training step at full width, through the entry points ---
     tracer = make_tape_camera_tracer(cam_main, BOUNCE_SEED, CAM_SEED, iota_pix=True)
@@ -485,9 +526,10 @@ def check_gradient_path(dev, presets, final, cam_main, k5_main) -> dict:
     sweep = sweep_work(out_main, args_main[0])
     k6_bytes = (rows * 128 + n_pix * (12 + 4) + 4 * n_sph * 4 + 11 * n_sph * 4 + 24 * 4 + 8)
     k8_flops, k8_bytes, k8_rows = walk_work(out_main, n_sph)
-    log(f"[time] K6 {k6_ms:.3f} ms (plain {k6_plain_ms:.1f} ms), K8 {k8_ms:.3f} ms (plain "
-        f"{k8_plain_ms:.1f} ms) at the main path; tape {out_main.tape.numel() * 4:,} B "
-        f"allocated, {rows * 128:,} B written ({rows:,} rows, {rows / n_pix:.4f} per ray); "
+    log(f"[time] K6 {k6_ms:.3f} ms (plain {k6_plain_ms:.1f} ms), K8 {k8_ms:.3f} ms (bound "
+        f"{max(k8_bytes / HBM_BYTES_PER_S, k8_flops / peak) * 1e3:.4f} ms, lane "
+        f"use {k8_lane:.4f}, plain {k8_plain_ms:.1f} ms) at the main path; tape "
+        f"{out_main.tape.numel() * 4:,} B allocated, {rows * 128:,} B written ({rows:,} rows, {rows / n_pix:.4f} per ray); "
         f"K8 reads {k8_rows:,} rows")
     log(f"[bound] sweep: {sweep['tests']:,} ray x live-sphere tests ({sweep['live']} live "
         f"spheres), {sweep['near']:,} with disc >= 0 ({sweep['near'] / sweep['tests']:.4%}), "
@@ -514,12 +556,13 @@ def check_gradient_path(dev, presets, final, cam_main, k5_main) -> dict:
         "sweep": sweep,
         "mega_walk_bwd": dict(launches=launches["mega_walk_bwd"], max_abs_err=k8_err, ms=k8_ms,
                               plain_ms=k8_plain_ms, flops=k8_flops, bytes=k8_bytes,
-                              max_norm_err=k8_norm_err),
+                              max_norm_err=k8_norm_err, lane_use=k8_lane,
+                              lane_use_static=finished_static_lane_use(out_main)),
         "record": dict(step_ms=step_ms, rays_per_s=n_pix / step_ms * 1e3, first_step_wall_ms=wall
                        * 1e3, adam_losses=losses, k6_lane_use=k6_lane,
                        k6_static_lane_use=k6_static, tape_bytes_allocated=out_main.tape.numel() * 4,
                        tape_bytes_written=rows * 128, tape_rows=rows, k8_rows=k8_rows,
-                       sweep=sweep, k8_max_norm_err=k8_norm_err),
+                       sweep=sweep, k8_max_norm_err=k8_norm_err, k8_lane_use=k8_lane),
     }
 
 
@@ -548,6 +591,30 @@ def k9_cost(stats, pack, n_rays: int, tape_rows: int = 0) -> dict:
     return dict(bounces=bounces, admitted=admitted, tests=tests, near=near,
                 finite_chunks=finite, live=live, dense_tests=bounces * live, flops=flops,
                 bytes=nbytes)
+
+
+def k9_lanes(label, stats, warp_stats, lengths=None) -> dict:
+    """K9's lane use (bounces over 32 x warp steps) and sweep lane use
+    (slot tests of admitted chunks over 32 x the slot-test rounds the warps
+    issued) from one launch's counters; with lengths, also the lane use
+    one thread per ray in static warps of 32 consecutive rays had (K9
+    before the persistent loop)."""
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
+
+    bounces, tests = int(stats[0]), int(stats[2])
+    steps, warp_tests = (int(x) for x in warp_stats.tolist())
+    out = dict(lane_use=mk.lane_use(bounces, steps),
+               sweep_lane_use=mk.sweep_lane_use(tests, warp_tests))
+    before = ""
+    if lengths is not None:
+        out["lane_use_static"] = mk.static_lane_use(lengths)
+        before = f"; one thread per ray in static warps of 32 {out['lane_use_static']:.4f}"
+    log(f"[lane] K9 {label}: {bounces:,} bounces in {steps:,} warp steps, lane use "
+        f"{out['lane_use']:.4f}; {tests:,} slot tests of admitted chunks in {warp_tests:,} "
+        f"warp slot tests, sweep lane use {out['sweep_lane_use']:.4f}{before}")
+    require(0.0 < out["lane_use"] <= 1.0 and 0.0 < out["sweep_lane_use"] <= 1.0,
+            f"K9 {label}: lane use out of (0, 1]: {out}")
+    return out
 
 
 def check_record(label, rec, rec_plain, render_colors, plain_ms) -> float:
@@ -608,7 +675,7 @@ def check_walk_path(dev, presets, final, cam_main, k5_main, k5_bounces, k5_ms,
     # --- phase 10: K9 against K5 on the main path (final 1200x675 depth 50) ---
     pack_f = mwk.walk_pack_for(final, cam_main, chunk=WALK_CHUNK)
     args_f, kw_f = args_of(pack_f, cam_main), sample_kw(cam_main)
-    k9_f, st_f = mwk.mega_walk_sample_cuda(*args_f, **kw_f)
+    k9_f, st_f, warp_f = mwk.mega_walk_sample_cuda(*args_f, with_warp_stats=True, **kw_f)
     torch.cuda.synchronize()
     err = float((k9_f - k5_main).abs().max())
     log(f"[k9] final 1200x675 depth 50 through walk_pack_for(chunk={WALK_CHUNK}): "
@@ -620,9 +687,11 @@ def check_walk_path(dev, presets, final, cam_main, k5_main, k5_bounces, k5_ms,
     cost_f = k9_cost(st_f, pack_f, cam_main.num_pixels)
     log(f"[time] final 1200x675 depth 50: K9 {k9_f_ms:.3f} ms vs K5 {k5_ms:.3f} ms per sample; "
         + per_ray(cost_f, cam_main.num_pixels))
+    lanes_f = k9_lanes("render, final 1200x675 depth 50", st_f, warp_f)
 
-    # --- phase 11: K9 render and record against their plain versions (reduced image,
-    # whose tape phase 12's float64 referee can afford) ---
+    # --- phase 11: K9 render and record against their plain versions, at the
+    # occupancy grid and at one block (reduced image, which one block traces in well
+    # under a second and whose tape phase 12's float64 referee can afford) ---
     field = presets.random_sphere_field(8192, seed=5, extent=30.0)
     cam_big, cam_small = walk_camera(presets, 1024), walk_camera(presets, 256)
     pack = mwk.walk_pack_for(field, cam_big, chunk=WALK_CHUNK)
@@ -631,23 +700,30 @@ def check_walk_path(dev, presets, final, cam_main, k5_main, k5_bounces, k5_ms,
         f"always swept")
     args_s, kw_s = args_of(pack, cam_small), sample_kw(cam_small)
     n_s = cam_small.num_pixels
-    got, got_st = mwk.mega_walk_sample_cuda(*args_s, **kw_s)
     (want, want_st), plain_ms = cuda_timed(lambda: mwk.mega_walk_sample_plain(*args_s, **kw_s))
-    log(f"[k9] render {cam_small.image_width}x{cam_small.image_height} depth 8: max abs err "
-        f"{float((got - want).abs().max()):.3e}, equal bit for bit {torch.equal(got, want)}; "
-        f"stats kernel {got_st.tolist()} plain {want_st.tolist()} ({', '.join(mwk.STATS)}); "
-        f"plain {plain_ms:.1f} ms")
-    require(torch.equal(got, want), "K9 render differs from its plain version")
-    require(torch.equal(got_st.cpu(), want_st.cpu()), "K9 counters differ from the plain count")
+    small = f"{cam_small.image_width}x{cam_small.image_height} depth 8"
     fkw = dict(bounce_seed=BOUNCE_SEED, cam_seed=CAM_SEED, pix0=0, n_valid=n_s,
                w=cam_small.image_width, max_depth=cam_small.max_depth)
-    rec = mwk.mega_walk_forward_camera_cuda(*args_s, **fkw)
-    rec_plain, plain_ms = cuda_timed(lambda: mwk.mega_walk_forward_camera_plain(*args_s, **fkw))
-    check_record(f"{cam_small.image_width}x{cam_small.image_height} depth 8", rec, rec_plain,
-                 got, plain_ms)
-    require(torch.equal(rec.stats, got_st), "K9 record and render counters differ")
+    rec_plain, rec_plain_ms = cuda_timed(
+        lambda: mwk.mega_walk_forward_camera_plain(*args_s, **fkw))
+    for grid, at in ((None, ""), (1, ", one block")):
+        got, got_st, warp = mwk.mega_walk_sample_cuda(*args_s, grid=grid, with_warp_stats=True,
+                                                      **kw_s)
+        torch.cuda.synchronize()
+        log(f"[k9] render {small}{at}: max abs err {float((got - want).abs().max()):.3e}, "
+            f"equal bit for bit {torch.equal(got, want)}; stats kernel {got_st.tolist()} plain "
+            f"{want_st.tolist()} ({', '.join(mwk.STATS)}); plain {plain_ms:.1f} ms")
+        require(torch.equal(got, want), f"K9 render{at} differs from its plain version")
+        require(torch.equal(got_st.cpu(), want_st.cpu()),
+                f"K9{at} counters differ from the plain count")
+        k9_lanes(f"render, field {small}{at}", got_st, warp)
+        rec = mwk.mega_walk_forward_camera_cuda(*args_s, grid=grid, **fkw)
+        check_record(small + at, rec, rec_plain, got, rec_plain_ms)
+        require(torch.equal(rec.stats, got_st), "K9 record and render counters differ")
+        k9_lanes(f"record, field {small}{at}", rec.stats, rec.warp_stats)
 
-    # --- phase 12: K8 past 512 slots against the plain walk on that tape ---
+    # --- phase 12: K8 past 512 slots against the plain walk on that tape (the
+    # one-block record's, equal to the grid's) ---
     k8_check(
         dev, f"walk tape, {pack.n_slots} slots, {cam_small.image_width}x"
         f"{cam_small.image_height} depth 8", rec, pack.n_slots, K8_BAND, referee=True)
@@ -710,7 +786,9 @@ def check_walk_path(dev, presets, final, cam_main, k5_main, k5_bounces, k5_ms,
                               rec_bp, ren_b, record_plain_ms)
     del rec_bp
     record_ms = cuda_ms(lambda: mwk.mega_walk_forward_camera_cuda(*args_b, **fkw_b), 3)
-    k8w_err, k8w_norm, k8w_plain_ms, g_b = k8_check(
+    lanes_rec = k9_lanes(f"record, field {cam_big.image_width}x{cam_big.image_height} depth 8",
+                         rec_b.stats, rec_b.warp_stats, rec_b.lengths)
+    k8w_err, k8w_norm, k8w_plain_ms, g_b, k8w_lane = k8_check(
         dev, f"walk tape, {pack.n_slots} slots, {cam_big.image_width}x{cam_big.image_height} "
         "depth 8", rec_b, pack.n_slots, K8_MAIN_BAND, referee=True)
     k8w_ms = cuda_ms(lambda: wbk.mega_walk_backward_cuda(rec_b.tape, rec_b.lengths, g_b,
@@ -718,9 +796,11 @@ def check_walk_path(dev, presets, final, cam_main, k5_main, k5_bounces, k5_ms,
     rows_b = int(rec_b.lengths.sum())
     cost_rec = k9_cost(rec_b.stats, pack, n_big, tape_rows=rows_b)
     k8w_flops, k8w_bytes, k8w_rows = walk_work(rec_b, pack.n_slots)
-    log(f"[time] walk step parts: K9 record {record_ms:.3f} ms, K8 ({pack.n_slots} slots) "
-        f"{k8w_ms:.3f} ms; tape {rows_b:,} rows ({rows_b / n_big:.4f} per ray), K8 reads "
-        f"{k8w_rows:,}; " + per_ray(cost_rec, n_big))
+    log(f"[time] walk step parts: K9 record {record_ms:.3f} ms (bound "
+        f"{cost_rec['flops'] / peak * 1e3:.4f} ms, lane use {lanes_rec['lane_use']:.4f}, sweep "
+        f"lane use {lanes_rec['sweep_lane_use']:.4f}), K8 ({pack.n_slots} slots) {k8w_ms:.3f} "
+        f"ms (lane use {k8w_lane:.4f}); tape {rows_b:,} rows ({rows_b / n_big:.4f} per ray), "
+        f"K8 reads {k8w_rows:,}; " + per_ray(cost_rec, n_big))
 
     # --- phase 14: render_progressive routes the field to the walk (K9) ---
     mwk.mega_walk_sample_cuda.launches = 0
@@ -746,7 +826,7 @@ def check_walk_path(dev, presets, final, cam_main, k5_main, k5_bounces, k5_ms,
     log("[walk-main] equals render_wavefront_sum_mega_walk bit for bit; top-center pixel "
         f"{img[0, cam_big.image_width // 2].tolist()}")
     kw_e = sample_kw(cam_big, bounce_seed=batch_seeds(0, 0)[0], cam_seed=batch_seeds(0, 0)[1])
-    got_e, st_e = mwk.mega_walk_sample_cuda(*args_b, **kw_e)
+    got_e, st_e, warp_e = mwk.mega_walk_sample_cuda(*args_b, with_warp_stats=True, **kw_e)
     (want_e, want_st_e), render_plain_ms = cuda_timed(
         lambda: mwk.mega_walk_sample_plain(*args_b, **kw_e))
     render_err = float((got_e - want_e).abs().max())
@@ -758,25 +838,31 @@ def check_walk_path(dev, presets, final, cam_main, k5_main, k5_bounces, k5_ms,
     del want_e
     render_ms = cuda_ms(lambda: mwk.mega_walk_sample_cuda(*args_b, **kw_e), 5)
     cost_ren = k9_cost(st_e, pack, n_big)
+    lanes_ren = k9_lanes(f"render, field {cam_big.image_width}x{cam_big.image_height} depth 8",
+                         st_e, warp_e)
     log(f"[time] walk render {render_ms:.3f} ms per sample ({n_big / render_ms * 1e3:,.0f} "
         f"rays/s), bound {cost_ren['flops'] / peak * 1e3:.4f} ms ({cost_ren['flops']:,} FP32 "
-        f"operations); " + per_ray(cost_ren, n_big))
+        f"operations), lane use {lanes_ren['lane_use']:.4f}, sweep lane use "
+        f"{lanes_ren['sweep_lane_use']:.4f}; " + per_ray(cost_ren, n_big))
 
     return {
         "mega_walk": dict(launches=walk_launches, max_abs_err=render_err, ms=render_ms,
                           plain_ms=render_plain_ms, flops=cost_ren["flops"],
-                          bytes=cost_ren["bytes"]),
+                          bytes=cost_ren["bytes"], **lanes_ren),
         "mega_walk_record": dict(launches=launches["mega_walk_record"], max_abs_err=record_err,
                                  ms=record_ms, plain_ms=record_plain_ms,
-                                 flops=cost_rec["flops"], bytes=cost_rec["bytes"]),
+                                 flops=cost_rec["flops"], bytes=cost_rec["bytes"], **lanes_rec),
         "mega_walk_bwd_global": dict(launches=launches["mega_walk_bwd"], max_abs_err=k8w_err,
                                      ms=k8w_ms, plain_ms=k8w_plain_ms, flops=k8w_flops,
-                                     bytes=k8w_bytes, max_norm_err=k8w_norm),
+                                     bytes=k8w_bytes, max_norm_err=k8w_norm, lane_use=k8w_lane,
+                                     lane_use_static=finished_static_lane_use(rec_b)),
         "record": dict(k9_final_ms=k9_f_ms, k5_final_ms=k5_ms, final_cost=cost_f,
                        render_cost=cost_ren, record_cost=cost_rec, step_ms=step_ms,
                        rays_per_s=n_big / step_ms * 1e3, k8_walk_ms=k8w_ms,
                        k8_walk_norm_err=k8w_norm, progressive_ms_per_sample=wall * 1e3 / 4,
-                       tape_rows=rows_b, k8_rows=k8w_rows),
+                       tape_rows=rows_b, k8_rows=k8w_rows, k9_final_lanes=lanes_f,
+                       k9_render_lanes=lanes_ren, k9_record_lanes=lanes_rec,
+                       k8_walk_lane_use=k8w_lane),
     }
 
 
@@ -784,18 +870,21 @@ def ray_walk_check(label, out, n, kernel, plain, band, referee=False):
     """A reverse walk with ray grads (K7, or K8 with ray_grads) against its
     plain version on one tape: g_pm's nine columns and the ray cotangents'
     six components, each normalized by its max, the kernel run twice (the
-    atomics' run-to-run spread; the ray cotangents have no atomics).
-    kernel(g) and plain(g, dtype) return (g_pm, g_ray).  g_pm and the ray
+    atomics' run-to-run spread; the ray cotangents have no atomics), and
+    once at one block.  kernel(g, **kw) (kw: the wrapper's grid= and
+    with_stats=) and plain(g, dtype) return (g_pm, g_ray).  g_pm and the ray
     cotangents are held to band over all rays, the ray cotangents also to
     RAY_CALM_BAND normalized over the rays without a grazing hit (where
     1 / sqrt(disc) enters d_o and d_d directly).  With referee, both against the
     same walk in float64, with and without the grazing rays.  Returns (max
-    abs err, max normalized err, plain ms, g_color, the kernel's result)."""
+    abs err, max normalized err, plain ms, g_color, the kernel's result,
+    lane use)."""
     dev = out.tape.device
     g = torch.randn(out.lengths.shape[0], 3,
                     generator=torch.Generator().manual_seed(3)).to(dev)
-    got = kernel(g)
+    *got, stats = kernel(g, with_stats=True)
     again = kernel(g)
+    *one, one_stats = kernel(g, grid=1, with_stats=True)
     want, plain_ms = cuda_timed(lambda: plain(g, torch.float32))
     graz = grazing_rays(out)
 
@@ -808,7 +897,11 @@ def ray_walk_check(label, out, n, kernel, plain, band, referee=False):
     log(f"[walk] {label}: vs plain, g_pm {fmt(err[:9])}; ray cotangents {fmt(err[9:])} all "
         f"rays, {fmt(calm[9:])} without the {int(graz.sum()):,} of {graz.numel():,} with a "
         f"grazing hit; run-to-run {float(errs(again, got).max()):.2e} normalized, ray "
-        f"cotangents equal {torch.equal(again[1], got[1])}; plain {plain_ms:.1f} ms")
+        f"cotangents equal {torch.equal(again[1], got[1])}; one block vs plain "
+        f"{float(errs(one, want).max()):.2e}, ray cotangents equal the grid's "
+        f"{torch.equal(one[1], got[1])}; plain {plain_ms:.1f} ms")
+    lane = walk_lane(label, stats, one_stats)
+    require(torch.equal(one[1], got[1]), f"{label}: ray cotangents differ with the grid")
     if referee:  # both f32 walks against the same walk in float64
         exact = plain(g, torch.float64)
         log(f"[walk] {label}: vs the float64 walk, kernel {fmt(errs(got, exact))}, plain "
@@ -818,15 +911,18 @@ def ray_walk_check(label, out, n, kernel, plain, band, referee=False):
                                  plain(g_calm, torch.float32))
         log(f"[walk] {label}: without the grazing rays, vs the float64 walk, kernel "
             f"{fmt(errs(k_calm, exact))}, plain {fmt(errs(p_calm, exact))}")
-    require(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
-            f"{label}: gradients not finite")
-    require(float(err.max()) < band, f"{label}: vs plain {float(err.max()):.3e}")
-    require(float(calm[9:].max()) < RAY_CALM_BAND,
-            f"{label}: ray cotangents without the grazing rays vs plain "
-            f"{float(calm[9:].max()):.3e}")
+    for at, res in (("", got), (" at one block", one)):
+        err, calm = errs(res, want), errs(res, want, ~graz)
+        require(bool(torch.isfinite(res[0]).all() and torch.isfinite(res[1]).all()),
+                f"{label}{at}: gradients not finite")
+        require(float(err.max()) < band, f"{label}{at}: vs plain {float(err.max()):.3e}")
+        require(float(calm[9:].max()) < RAY_CALM_BAND,
+                f"{label}{at}: ray cotangents without the grazing rays vs plain "
+                f"{float(calm[9:].max()):.3e}")
+    err = errs(got, want)
     abs_err = max(float((got[0][:n] - want[0][:n]).abs().max()),
                   float((got[1] - want[1]).abs().max()))
-    return abs_err, float(err.max()), plain_ms, g, got
+    return abs_err, float(err.max()), plain_ms, g, got, lane
 
 
 def check_ray_pose_path(dev, final, cam_main) -> dict:
@@ -906,7 +1002,8 @@ def check_ray_pose_path(dev, final, cam_main) -> dict:
 
     # --- phase 16: K7 against its plain version, and against K8 on one tape ---
     def k7(out):
-        return (lambda g: mbk.mega_backward_cuda(cols, attrs, out.tape, out.lengths, g, n_sph),
+        return (lambda g, **kw: mbk.mega_backward_cuda(cols, attrs, out.tape, out.lengths, g,
+                                                       n_sph, **kw),
                 lambda g, dt: mbk.mega_backward_plain(cols, attrs, out.tape, out.lengths, g,
                                                       n_sph, dtype=dt))
 
@@ -914,7 +1011,7 @@ def check_ray_pose_path(dev, final, cam_main) -> dict:
     ray_walk_check(f"K7, {RAY_TRACER_RAYS:,} rays depth 8", out_8, n_sph, *k7(out_8), K8_BAND,
                    referee=True)
     del out_8
-    k7_err, k7_norm, k7_plain_ms, g_ray_tr, k7_got = ray_walk_check(
+    k7_err, k7_norm, k7_plain_ms, g_ray_tr, k7_got, k7_lane = ray_walk_check(
         f"K7, {RAY_TRACER_RAYS:,} rays depth 50", out_ray, n_sph, *k7(out_ray), K8_MAIN_BAND,
         referee=True)
     k8_on = wbk.mega_walk_backward_cuda(out_ray.tape, out_ray.lengths, g_ray_tr, n_sph,
@@ -928,18 +1025,19 @@ def check_ray_pose_path(dev, final, cam_main) -> dict:
     k7_ms = cuda_ms(lambda: mbk.mega_backward_cuda(cols, attrs, out_ray.tape, out_ray.lengths,
                                                    g_ray_tr, n_sph), 3)
     k7_flops, k7_bytes, k7_rows = walk_work(out_ray, n_sph)
+    k7_static = finished_static_lane_use(out_ray)
     k7_bytes += RAY_TRACER_RAYS * 24 + 15 * n_sph * 4
 
     # --- phase 17: K8 with ray grads against its plain version ---
     def k8r(out):
-        return (lambda g: wbk.mega_walk_backward_cuda(out.tape, out.lengths, g, n_sph,
-                                                      ray_grads=True),
+        return (lambda g, **kw: wbk.mega_walk_backward_cuda(out.tape, out.lengths, g, n_sph,
+                                                            ray_grads=True, **kw),
                 lambda g, dt: wbk.mega_walk_backward_plain(out.tape, out.lengths, g, n_sph,
                                                            dtype=dt, ray_grads=True))
 
     out_c8 = mk.mega_forward_camera_cuda(cols, attrs, cam_row, None,
                                          **dict(cam_kw, max_depth=8))
-    _, _, _, g8, got8 = ray_walk_check("K8 with ray grads, final 1200x675 depth 8", out_c8,
+    _, _, _, g8, got8, _ = ray_walk_check("K8 with ray grads, final 1200x675 depth 8", out_c8,
                                        n_sph, *k8r(out_c8), K8_BAND)
     off = wbk.mega_walk_backward_cuda(out_c8.tape, out_c8.lengths, g8, n_sph)
     off_err = float(col_err(off[:n_sph], got8[0][:n_sph]).max())
@@ -947,7 +1045,7 @@ def check_ray_pose_path(dev, final, cam_main) -> dict:
         f"(atomics' order)")
     require(off_err < K8_BAND, "K8 with and without ray grads differ")
     del out_c8
-    k8r_err, k8r_norm, k8r_plain_ms, g_main, _ = ray_walk_check(
+    k8r_err, k8r_norm, k8r_plain_ms, g_main, _, k8r_lane = ray_walk_check(
         "K8 with ray grads, final 1200x675 depth 50", out_main, n_sph, *k8r(out_main),
         K8_MAIN_BAND, referee=True)
     k8r_ms = cuda_ms(lambda: wbk.mega_walk_backward_cuda(out_main.tape, out_main.lengths, g_main,
@@ -958,6 +1056,7 @@ def check_ray_pose_path(dev, final, cam_main) -> dict:
                                                             **cam_kw), 3)
     k8r_flops, k8r_bytes, _ = walk_work(out_main, n_sph)
     k8r_bytes += n_pix * 24
+    k8r_static = finished_static_lane_use(out_main)
     del out_main
 
     # --- phase 18: both tracers at full width, through the entry points ---
@@ -996,7 +1095,8 @@ def check_ray_pose_path(dev, final, cam_main) -> dict:
     ray_step_ms = cuda_ms(ray_step, 3)
     log(f"[time] ray-table fwd+bwd step {ray_step_ms:.3f} ms "
         f"({RAY_TRACER_RAYS / ray_step_ms * 1e3:,.0f} rays/s): K6 ray {ray_ms:.3f} ms "
-        f"({ray_ms / ray_step_ms:.1%}), K7 {k7_ms:.3f} ms ({k7_ms / ray_step_ms:.1%}), the rest "
+        f"({ray_ms / ray_step_ms:.1%}), K7 {k7_ms:.3f} ms ({k7_ms / ray_step_ms:.1%}, lane use "
+        f"{k7_lane:.4f}), the rest "
         f"{ray_step_ms - ray_ms - k7_ms:.3f} ms; tape {rows_ray:,} rows, K7 reads {k7_rows:,}")
 
     pose = make_tape_camera_pose_tracer(cam_main, BOUNCE_SEED, CAM_SEED)
@@ -1032,7 +1132,8 @@ def check_ray_pose_path(dev, final, cam_main) -> dict:
     pose_step_ms = cuda_ms(pose_step, 3)
     log(f"[time] pose fwd+bwd step {pose_step_ms:.3f} ms ({n_pix / pose_step_ms * 1e3:,.0f} "
         f"rays/s): K6 camera {k6_cam_ms:.3f} ms ({k6_cam_ms / pose_step_ms:.1%}), K8 with ray "
-        f"grads {k8r_ms:.3f} ms ({k8r_ms / pose_step_ms:.1%}; without them {k8_off_ms:.3f} ms), "
+        f"grads {k8r_ms:.3f} ms ({k8r_ms / pose_step_ms:.1%}, lane use {k8r_lane:.4f}; without "
+        f"them {k8_off_ms:.3f} ms), "
         f"the rest {pose_step_ms - k6_cam_ms - k8r_ms:.3f} ms")
 
     return {
@@ -1041,15 +1142,17 @@ def check_ray_pose_path(dev, final, cam_main) -> dict:
                                  bytes=ray_bytes, lane_use=ray_lane, lane_use_static=ray_static),
         "mega_bwd": dict(launches=ray_launches["mega_bwd"], max_abs_err=k7_err, ms=k7_ms,
                          plain_ms=k7_plain_ms, flops=k7_flops, bytes=k7_bytes,
-                         max_norm_err=k7_norm),
+                         max_norm_err=k7_norm, lane_use=k7_lane, lane_use_static=k7_static),
         "mega_walk_bwd_rays": dict(launches=pose_launches["mega_walk_bwd_rays"],
                                    max_abs_err=k8r_err, ms=k8r_ms, plain_ms=k8r_plain_ms,
-                                   flops=k8r_flops, bytes=k8r_bytes, max_norm_err=k8r_norm),
+                                   flops=k8r_flops, bytes=k8r_bytes, max_norm_err=k8r_norm,
+                                   lane_use=k8r_lane, lane_use_static=k8r_static),
         "record": dict(ray_step_ms=ray_step_ms, ray_rays_per_s=RAY_TRACER_RAYS / ray_step_ms
                        * 1e3, k6_ray_ms=ray_ms, k7_ms=k7_ms, ray_tape_rows=rows_ray,
                        k7_rows=k7_rows, ray_sweep=sweep, pose_step_ms=pose_step_ms,
                        pose_rays_per_s=n_pix / pose_step_ms * 1e3, k6_camera_ms=k6_cam_ms,
                        k8_rays_ms=k8r_ms, k8_no_rays_ms=k8_off_ms, k7_vs_k8=k78,
+                       k7_lane_use=k7_lane, k8_rays_lane_use=k8r_lane,
                        d_cam_row=row.grad.tolist()),
     }
 
@@ -1679,13 +1782,16 @@ def main() -> int:
             log(f"[build] {name}.cu {e['kernel']}: {e['registers']} registers, spill stores "
                 f"{e['spill_stores']} B, spill loads {e['spill_loads']} B, {e['smem']} B smem")
     dev = torch.device("cuda")
-    grids = {"mega_render": _build.occupancy_grid("mega_render", "mega_render_blocks_per_sm",
-                                                  dev),
-             "mega_forward": _build.occupancy_grid("mega_forward", "mega_forward_blocks_per_sm",
-                                                   dev, 0),
-             "mega_forward_ray": _build.occupancy_grid("mega_forward",
-                                                       "mega_forward_blocks_per_sm", dev, 1)}
-    log(f"[build] persistent grids (SMs x blocks per SM of 256 threads): {grids}")
+    # the persistent kernels' grids, by (name, source, mode): 256 threads a
+    # block for K5, K6 and K9, 128 for the reverse walks K8 and K7
+    grids = {name: _build.occupancy_grid(src, f"{src}_blocks_per_sm", dev, *mode)
+             for name, src, mode in (
+                 ("mega_render", "mega_render", ()), ("mega_forward", "mega_forward", (0,)),
+                 ("mega_forward_ray", "mega_forward", (1,)), ("mega_walk", "mega_walk", (0,)),
+                 ("mega_walk_record", "mega_walk", (1,)),
+                 ("mega_walk_bwd", "mega_walk_bwd", (0,)),
+                 ("mega_walk_bwd_rays", "mega_walk_bwd", (1,)), ("mega_bwd", "mega_bwd", (1,)))}
+    log(f"[build] persistent grids (SMs x blocks per SM): {grids}")
 
     def both(scene, cam, sample=0, bounce_seed=BOUNCE_SEED, cam_seed=CAM_SEED, grid=None):
         cols, attrs, cam_row = mrk.prepare(scene, cam, dev)
@@ -1786,9 +1892,9 @@ def main() -> int:
     require(read_ppm(str(out_ppm)).shape == (675, 1200, 3), "CLI PPM is not 1200x675")
 
     # --- phases 6-8: the scene-gradient path (K6, K8) ---
-    grad = check_gradient_path(dev, presets, final, cam_main, k)
-    # --- phases 10-14: the walk engine past 512 spheres (K9, K8 past 512) ---
     peak = fp32_peak_flops()
+    grad = check_gradient_path(dev, presets, final, cam_main, k, peak)
+    # --- phases 10-14: the walk engine past 512 spheres (K9, K8 past 512) ---
     walk = check_walk_path(dev, presets, final, cam_main, k, kb, ms, peak)
     # --- phases 15-18: gradients through rays and the camera pose (K6 ray mode, K7,
     # K8 with ray grads) ---
@@ -1832,12 +1938,14 @@ def main() -> int:
             bound_by="operations" if ops_s >= bytes_s else "bytes", library_ms=None,
             library_note=NO_LIBRARY[src]))
         for key in ("max_norm_err",  # g_pm's columns span orders of magnitude
-                    "lane_use", "lane_use_static"):  # the persistent kernels (K5, K6)
+                    # the persistent kernels (K5-K9): lane use, the walk's sweep lane use,
+                    # one thread per ray in static warps of 32
+                    "lane_use", "sweep_lane_use", "lane_use_static"):
             if key in g:
                 kernels[-1][key] = g[key]
     for kd in kernels:
-        lane = (f", lane use {kd['lane_use']:.4f} (static warps {kd['lane_use_static']:.4f})"
-                if "lane_use" in kd else "")
+        lane = "".join(f", {key.replace('_', ' ')} {kd[key]:.4f}" for key in (
+            "lane_use", "sweep_lane_use", "lane_use_static") if key in kd)
         log(f"[kernel] {kd['name']}: {kd['ms']:.3f} ms, bound {kd['bound_ms']:.4f} ms "
             f"({kd['bound_by']}), plain {kd['plain_ms']:.1f} ms, launches {kd['launches']}, "
             f"max_abs_err {kd['max_abs_err']:.3e}{lane}")

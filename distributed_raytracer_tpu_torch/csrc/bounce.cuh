@@ -36,14 +36,16 @@
 // smaller t (the walk's chunk merge).  The winner's index is base + j
 // (base: where sph starts in the scene, for a tile staged in shared
 // memory).  r2 = -1 marks a sphere that never hits.  COUNT also adds the
-// tests whose discriminant is not negative to *n_near.
+// tests whose discriminant is not negative to *n_near.  step > 1 sweeps
+// every step-th sphere from j0 (a lane's share of a range that a warp
+// sweeps together).
 template <bool COUNT = false>
 __device__ __forceinline__ void sweep_range(const float4* sph, int j0, int j1, float ox,
                                             float oy, float oz, float dx, float dy, float dz,
                                             float a, float inv_a, float& best, int& bi,
                                             unsigned long long* n_near = nullptr,
-                                            int base = 0) {
-  for (int j = j0; j < j1; ++j) {
+                                            int base = 0, int step = 1) {
+  for (int j = j0; j < j1; j += step) {
     const float4 s = sph[j];
     const float ocx = s.x - ox;
     const float ocy = s.y - oy;

@@ -1,5 +1,8 @@
-// The persistent, compacting bounce loop of K5 (csrc/mega_render.cu) and
-// K6 (csrc/mega_forward.cu, camera and ray mode).
+// The persistent, compacting loops of the port: the bounce loop of K5
+// (csrc/mega_render.cu), K6 (csrc/mega_forward.cu, camera and ray mode)
+// and K9 (csrc/mega_walk.cu, render and record), and the block-wide
+// refill and repack that the reverse tape walk of K8 and K7
+// (walk_bwd.cuh) shares with it.
 //
 // Why: with one thread per ray from the camera to the ray's end, a warp
 // sweeps the scene until its longest ray ends.  On the RTiOW final scene
@@ -8,25 +11,29 @@
 // lanes whose ray was already done.
 //
 // Design: a grid of (SMs x blocks per SM) blocks of PERSIST_THREADS
-// threads, each of which stages the scene once and then runs steps until
-// the image's rays are all traced.  A block keeps a pool of ray states in
-// shared memory, one slot per thread.  In each step:
+// threads, each of which stages what it reads often (the scene, when it
+// fits, or the camera row) once and then runs steps until the image's
+// rays are all traced.  A block keeps a pool of ray states in shared
+// memory, one slot per thread.  In each step:
 //
 //   1. refill: the free slots take the next rays in pixel order, from one
-//      global ray counter (one atomicAdd per block and step);
+//      global ray counter (pool_refill: one atomicAdd per block and step);
 //   2. bounce: every thread that holds a live ray runs one bounce_once
 //      (trace.cuh: sweep, draws, shade and, recording, the tape row); a
 //      warp with no live ray skips it;
 //   3. the finished rays write their colors (and lengths);
 //   4. compaction: the live rays are repacked into the lowest slots, by a
-//      block-wide scan of the warps' __ballot_sync counts, so the live
-//      rays fill whole warps and the empty warps above them idle.
+//      block-wide scan of the warps' __ballot_sync counts (pool_repack),
+//      so the live rays fill whole warps and the empty warps above them
+//      idle.
 //
 // Once the counter is empty and the pool has drained, the block exits.
 // Every draw is keyed by (rid, depth) and each ray's arithmetic is
-// trace_from's, so colors, tape rows, lengths and the bounce count are
-// the one-thread-per-ray kernel's, bit for bit, whatever the grid or the
-// order in which blocks take rays; the counters are integer atomics.
+// bounce_once's, step after step, so colors, tape rows, lengths and the
+// bounce count are the same whatever the grid or the order in which
+// blocks take rays; the counters are integer atomics.  The scene accessor
+// (trace.cuh) says where the scene lives: ResidentScene staged in shared
+// memory (K5, K6), WalkChunks in global memory, walked chunk by chunk (K9).
 //
 // Besides the bounces, the loop counts warp steps, the (warp, step) pairs
 // that swept: lane use = bounces / (32 x warp steps).
@@ -40,10 +47,64 @@
 #define PERSIST_WARPS (PERSIST_THREADS / 32)
 
 // The counters a launch adds to, [3] u64 zeroed by the wrapper: the
-// bounces, the warp steps and the global ray counter.
+// bounces (the reverse walk: rows), the warp steps and the global ray
+// counter.
 #define CNT_BOUNCES 0
 #define CNT_WARP_STEPS 1
 #define CNT_NEXT 2
+
+// What the threads of a block of THREADS share to refill and repack their
+// pool.
+template <int THREADS>
+struct PoolSync {
+  int warp_live[THREADS / 32];
+  unsigned long long base;
+};
+
+// Step 1 of a persistent loop: the block takes the next THREADS - n_live
+// items from the global counter *next, one atomicAdd by thread 0.  Returns
+// whether it took any (false once it has drained the counter or its pool
+// is full), with the first item taken in base; drained turns true once the
+// counter has passed n_work.  Every thread of the block calls it.
+template <int THREADS>
+__device__ __forceinline__ bool pool_refill(PoolSync<THREADS>& ps, int n_live,
+                                            unsigned long long n_work,
+                                            unsigned long long* next, bool& drained,
+                                            unsigned long long& base) {
+  const int n_free = THREADS - n_live;
+  const bool take = !drained && n_free > 0;  // block-uniform
+  if (take && threadIdx.x == 0) ps.base = atomicAdd(next, (unsigned long long)n_free);
+  __syncthreads();
+  base = 0;
+  if (take) {
+    base = ps.base;
+    drained = base + n_free >= n_work;
+  }
+  return take;
+}
+
+// Step 4: the slot of this thread's item once the live items of the block
+// are repacked into slots 0 .. n_live-1 in slot order, by a scan of the
+// warps' ballot counts; n_live becomes the block's live count.  Every
+// thread of the block calls it, once every slot was read; the caller then
+// writes its live item to the slot and syncs the block.
+template <int THREADS>
+__device__ __forceinline__ int pool_repack(PoolSync<THREADS>& ps, bool live, int& n_live) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned mask = __ballot_sync(0xFFFFFFFFu, live);
+  if (lane == 0) ps.warp_live[warp] = __popc(mask);
+  __syncthreads();
+  int slot = __popc(mask & ((1u << lane) - 1u));
+  n_live = 0;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) {
+    const int c = ps.warp_live[w];
+    slot += w < warp ? c : 0;
+    n_live += c;
+  }
+  return slot;
+}
 
 // A camera's primary rays: ray k is pixel pixel_ids[k] (or pix0 + k), its
 // draws keyed by rid = rid_base + pixel (int32 wrap).
@@ -85,17 +146,16 @@ struct RayPool {
   int depth[PERSIST_THREADS];
   int ray[PERSIST_THREADS];
   uint32_t rid[PERSIST_THREADS];
-  int warp_live[PERSIST_WARPS];
-  unsigned long long base;
+  PoolSync<PERSIST_THREADS> sync;
 };
 
-// Traces rays 0 .. n_work-1 of `rays` through the staged scene sc, each to
-// its end or max_depth (>= 1), in persistent steps.  Ray k's color goes
-// to colors[k] (black when it ran out of depth); RECORD also writes its
+// Traces rays 0 .. n_work-1 of `rays` through the scene sc, each to its
+// end or max_depth (>= 1), in persistent steps.  Ray k's color goes to
+// colors[k] (black when it ran out of depth); RECORD also writes its
 // bounce at depth j to tape row (j * n_work + k) and its bounce count to
 // lengths[k].  Every thread of the block calls it.
-template <bool RECORD, class Rays>
-__device__ __forceinline__ void persist_trace(ResidentScene& sc, const Rays& rays,
+template <bool RECORD, class Scene, class Rays>
+__device__ __forceinline__ void persist_trace(Scene& sc, const Rays& rays,
                                               unsigned long long n_work, uint32_t bounce_seed,
                                               int max_depth, float* __restrict__ colors,
                                               int* __restrict__ lengths,
@@ -103,23 +163,14 @@ __device__ __forceinline__ void persist_trace(ResidentScene& sc, const Rays& ray
                                               unsigned long long* __restrict__ counts) {
   __shared__ RayPool pool;
   const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
   const size_t depth_stride = (size_t)n_work * TAPE_COLS;
   int n_live = 0;
   bool drained = false;
   unsigned long long my_bounces = 0, my_steps = 0;
   for (;;) {
     // 1. refill the free slots n_live .. PERSIST_THREADS-1
-    const int n_free = PERSIST_THREADS - n_live;
-    const bool take = !drained && n_free > 0;  // block-uniform
-    if (take && t == 0) pool.base = atomicAdd(counts + CNT_NEXT, (unsigned long long)n_free);
-    __syncthreads();
-    unsigned long long base = 0;
-    if (take) {
-      base = pool.base;
-      drained = base + n_free >= n_work;
-    }
+    unsigned long long base;
+    const bool take = pool_refill(pool.sync, n_live, n_work, counts + CNT_NEXT, drained, base);
     float o[3], d[3], atten[3];
     int depth, ray;
     uint32_t rid;
@@ -163,20 +214,10 @@ __device__ __forceinline__ void persist_trace(ResidentScene& sc, const Rays& ray
         live = false;
       }
     }
-    if (lane == 0 && swept) ++my_steps;
+    if ((t & 31) == 0 && swept) ++my_steps;
 
     // 4. repack the live rays into slots 0 .. n_live-1, in order
-    const unsigned mask = __ballot_sync(0xFFFFFFFFu, live);
-    if (lane == 0) pool.warp_live[warp] = __popc(mask);
-    __syncthreads();
-    int slot = __popc(mask & ((1u << lane) - 1u));
-    n_live = 0;
-#pragma unroll
-    for (int w = 0; w < PERSIST_WARPS; ++w) {
-      const int c = pool.warp_live[w];
-      slot += w < warp ? c : 0;
-      n_live += c;
-    }
+    const int slot = pool_repack(pool.sync, live, n_live);
     if (live) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
@@ -194,19 +235,19 @@ __device__ __forceinline__ void persist_trace(ResidentScene& sc, const Rays& ray
   add_count(my_steps, counts + CNT_WARP_STEPS);
 }
 
-// Blocks of `kernel` that fit on one SM at PERSIST_THREADS threads, by
+// Blocks of `kernel` that fit on one SM at `threads` threads, by
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative on an error.
 template <class Kernel>
-static int persist_blocks_per_sm(Kernel kernel) {
+static int persist_blocks_per_sm(Kernel kernel, int threads = PERSIST_THREADS) {
   int per_sm = 0;
   const cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PERSIST_THREADS, 0);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
   return err == cudaSuccess ? per_sm : -(int)err;
 }
 
-// The blocks to launch for n rays on a grid of at most `grid` blocks:
-// no more than the rays fill.
-static inline int persist_blocks(int grid, long long n) {
-  const long long need = (n + PERSIST_THREADS - 1) / PERSIST_THREADS;
+// The blocks of `threads` threads to launch for n items on a grid of at
+// most `grid` blocks: no more than the items fill.
+static inline int persist_blocks(int grid, long long n, int threads = PERSIST_THREADS) {
+  const long long need = (n + threads - 1) / threads;
   return (int)(need < grid ? (need > 0 ? need : 1) : grid);
 }

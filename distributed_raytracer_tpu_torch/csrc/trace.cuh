@@ -1,22 +1,21 @@
-// The bounce of the mega render kernel (csrc/mega_render.cu), the
-// recording forward (csrc/mega_forward.cu, in camera and ray mode) and the
-// walk kernel (csrc/mega_walk.cu), and the scene accessors they share.
+// The bounce of the persistent loop (persist.cuh) that the mega render
+// kernel (csrc/mega_render.cu), the recording forward (csrc/mega_forward.cu,
+// in camera and ray mode) and the walk kernel (csrc/mega_walk.cu) run, and
+// the scene accessors they share.
 //
-// trace_from<RECORD, Scene> runs the loop from a given primary ray to the
-// ray's end, trace_ray from the camera's (the walk kernel, one thread per
-// ray); bounce_once runs the loop's body, one bounce of one ray, for
-// persist.cuh's persistent blocks (K5 and K6).  RECORD = false
-// is the render kernels' bounce; RECORD = true runs the same bounce with
-// the recording shade<true> (bounce.cuh) and also writes its tape row
-// (tape.cuh).  Both compute the same values in the same order, so at
-// equal seeds their colors are equal bit for bit.  The Scene accessor
-// says where the scene lives and how a bounce finds its closest hit:
+// bounce_once runs one bounce of one ray.  RECORD = false is the render
+// kernels' bounce; RECORD = true runs the same bounce with the recording
+// shade<true> (bounce.cuh) and also writes its tape row (tape.cuh).  Both
+// compute the same values in the same order, so at equal seeds their
+// colors are equal bit for bit.  The Scene accessor says where the scene
+// lives and how a bounce finds its closest hit:
 //
 //   ResidentScene (K5, K6): the whole scene staged in shared memory, every
 //     sphere swept;
-//   WalkScene (K9): the scene in global memory (L2-resident) as visit-
-//     ordered chunks of slots, a chunk swept only when the ray can still
-//     hit its bounding sphere closer than its best t so far.
+//   WalkChunks (K9; K14 as WalkScene): the scene in global memory
+//     (L2-resident) as visit-ordered chunks of slots, a chunk swept only
+//     when the ray can still hit its bounding sphere closer than its best
+//     t so far.
 //
 // Both give sphere(j) (cx, cy, cz, r2), attr(ATT_*, j) and sweep(...),
 // which returns the closest t (DR_BIG on a miss) and its index.
@@ -96,13 +95,28 @@ __device__ __forceinline__ bool chunk_admits(float4 b, float ox, float oy, float
 // the winner is the dense argmin over the visit-ordered slots, ties
 // included.  Counts, per thread, the chunks admitted, the slot tests they
 // run and those tests whose discriminant is not negative.
-struct WalkScene {
+//
+// WARP (K9): the lanes that sweep together (__activemask at entry) decide
+// each chunk together.  Each lane admits a chunk by its own test, but a
+// warp sweeps a chunk for all of its lanes when any one admits it, and
+// the lanes that did not idle through that sweep.  So when few lanes
+// admit a chunk (k of them, k x (its rounds + 2) < its length), the warp
+// sweeps it for one admitting ray at a time, each lane testing every m-th
+// slot (m lanes together), and gathers the ray's closest hit by a warp
+// minimum of (t, slot): the first slot with the smallest t, what the
+// lane's own strict-< sweep finds, and merged with its best t the same
+// way, so results and per-lane counters are unchanged bit for bit.  The
+// slot-test rounds the warp issues are counted once per chunk by the
+// lowest lane (warp_tests; its length when the lanes sweep alone, k x its
+// rounds when together), so sweep lane use = tests / (32 x warp_tests).
+template <bool WARP>
+struct WalkChunks {
   const float4* sph;      // [n_slots] cx cy cz r2
   const float* att;       // [ATT_ROWS, n_slots]
   const float4* bounds;   // [n_chunks] bx by bz r2
   const int* chunk_len;   // [n_chunks]
   int n_slots, chunk, n_chunks;
-  unsigned long long admitted, tests, near_tests;
+  unsigned long long admitted, tests, near_tests, warp_tests;
 
   __device__ __forceinline__ float4 sphere(int j) const { return sph[j]; }
   __device__ __forceinline__ float attr(int row, int j) const { return att[row * n_slots + j]; }
@@ -110,12 +124,61 @@ struct WalkScene {
                                          float dz, float a, float inv_a, int* idx) {
     float best = DR_BIG;
     int bi = 0;
+    const int lane = threadIdx.x & 31;
+    unsigned together = 0u;
+    int m = 1, q = 0;  // the lanes sweeping together, and this lane's rank among them
+    if constexpr (WARP) {
+      together = __activemask();
+      m = __popc(together);
+      q = __popc(together & ((1u << lane) - 1u));
+    }
     for (int c = 0; c < n_chunks; ++c) {
-      if (!chunk_admits(bounds[c], ox, oy, oz, dx, dy, dz, a, inv_a, best)) continue;
+      const bool admit = chunk_admits(bounds[c], ox, oy, oz, dx, dy, dz, a, inv_a, best);
       const int j0 = c * chunk;
       const int len = chunk_len[c];
-      ++admitted;
-      tests += (unsigned long long)len;
+      if (admit) {
+        ++admitted;
+        tests += (unsigned long long)len;
+      }
+      if constexpr (WARP) {
+        const unsigned adm = __ballot_sync(together, admit);
+        if (adm == 0u) continue;
+        const int k = __popc(adm);
+        const int rounds = (len + m - 1) / m;
+        if (k * (rounds + 2) < len) {  // few admit: sweep together, one ray at a time
+          if (q == 0) warp_tests += (unsigned long long)(k * rounds);
+          for (unsigned todo = adm; todo != 0u; todo &= todo - 1u) {
+            const int r = __ffs(todo) - 1;
+            const float rox = __shfl_sync(together, ox, r);
+            const float roy = __shfl_sync(together, oy, r);
+            const float roz = __shfl_sync(together, oz, r);
+            const float rdx = __shfl_sync(together, dx, r);
+            const float rdy = __shfl_sync(together, dy, r);
+            const float rdz = __shfl_sync(together, dz, r);
+            const float ra = __shfl_sync(together, a, r);
+            const float rinv = __shfl_sync(together, inv_a, r);
+            float tb = DR_BIG;  // t > 0, so its bits order as unsigned ints
+            int jb = 0;
+            unsigned long long nn = 0;
+            sweep_range<true>(sph, j0 + q, j0 + len, rox, roy, roz, rdx, rdy, rdz, ra, rinv, tb,
+                              jb, &nn, 0, m);
+            const unsigned tmin = __reduce_min_sync(together, __float_as_uint(tb));
+            const unsigned jmin =
+                __reduce_min_sync(together, __float_as_uint(tb) == tmin ? (unsigned)jb : ~0u);
+            const unsigned n_near = __reduce_add_sync(together, (unsigned)nn);
+            if (lane == r) {
+              near_tests += n_near;
+              if (__uint_as_float(tmin) < best) {
+                best = __uint_as_float(tmin);
+                bi = (int)jmin;
+              }
+            }
+          }
+          continue;
+        }
+        if (q == 0) warp_tests += (unsigned long long)len;
+      }
+      if (!admit) continue;
       sweep_range<true>(sph, j0, j0 + len, ox, oy, oz, dx, dy, dz, a, inv_a, best, bi,
                         &near_tests);
     }
@@ -123,93 +186,11 @@ struct WalkScene {
     return best;
   }
 };
-
-// Traces the primary ray (o, d) (draws keyed by rid) through sweep +
-// shade until it finishes or reaches max_depth; o and d are updated in
-// place.  col gets its color: atten x the terminal color, black when it
-// was absorbed or ran out of depth.  Returns the bounces it ran.  The
-// primary ray comes from the camera (trace_ray below: K5, K6 camera mode,
-// K9) or from a ray table (K6 ray mode).
-//
-// RECORD: bounce k also writes tape row tape[k * depth_stride] (tape
-// points at the ray's depth-0 row): the pre-bounce o, d and atten, the
-// four draws, the contribution (the color on the finishing row, else 0),
-// the winner's parameters (zero on a miss), the winner's index in the
-// scene (the slot, for the walk), the ray index `ray` and the flags.  So
-// the bounces run are the rows written.
-template <bool RECORD, class Scene>
-__device__ __forceinline__ int trace_from(Scene& sc, float o[3], float d[3], uint32_t rid,
-                                          uint32_t bounce_seed, int max_depth, float col[3],
-                                          float* tape = nullptr, size_t depth_stride = 0,
-                                          int ray = 0) {
-  float atten[3] = {1.0f, 1.0f, 1.0f};
-  col[0] = col[1] = col[2] = 0.0f;
-  int depth = 0;
-  while (depth < max_depth) {
-    float row[TAPE_COLS];
-    if (RECORD) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        row[T_O + k] = o[k];
-        row[T_D + k] = d[k];
-        row[T_AT + k] = atten[k];
-      }
-    }
-    const float a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-    const float inv_a = 1.0f / a;
-    int bi;
-    const float t = sc.sweep(o[0], o[1], o[2], d[0], d[1], d[2], a, inv_a, &bi);
-    const uint32_t seed = bounce_seed + (uint32_t)depth * 65537u;
-    float at[3], co[3], rec[4];
-    if (RECORD) bounce_draws(rid, seed, rec);
-    const bool fin = shade<RECORD>(o, d, a, t, sc, bi, rid, seed, at, co, rec);
-    if (RECORD) {
-      const bool hit = t < DR_BIG * 0.5f;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        row[T_RU + k] = rec[k];
-        row[T_CO + k] = fin ? atten[k] * co[k] : 0.0f;
-      }
-      row[T_U] = rec[3];
-      const float4 s = hit ? sc.sphere(bi) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      row[T_CW + 0] = s.x;
-      row[T_CW + 1] = s.y;
-      row[T_CW + 2] = s.z;
-      row[T_RW] = hit ? sc.attr(ATT_RR, bi) : 0.0f;
-      row[T_AW + 0] = hit ? sc.attr(ATT_AR, bi) : 0.0f;
-      row[T_AW + 1] = hit ? sc.attr(ATT_AG, bi) : 0.0f;
-      row[T_AW + 2] = hit ? sc.attr(ATT_AB, bi) : 0.0f;
-      row[T_FW] = hit ? sc.attr(ATT_FZ, bi) : 0.0f;
-      row[T_IW] = hit ? sc.attr(ATT_IO, bi) : 0.0f;
-      row[T_MT] = hit ? sc.attr(ATT_MT, bi) : 0.0f;
-      row[T_IDX] = __int_as_float(hit ? bi : 0);
-      row[T_RAY] = __int_as_float(ray);
-      row[T_FLG] = __int_as_float((hit ? F_HIT : 0) | F_ACT | (depth == 0 ? F_TAKE : 0) |
-                                  (fin ? F_FIN : 0));
-#pragma unroll
-      for (int k = T_FLG + 1; k < TAPE_COLS; ++k) row[k] = 0.0f;
-      tape_store(tape + (size_t)depth * depth_stride, row);
-    }
-    ++depth;
-    if (fin) {
-      col[0] = atten[0] * co[0];
-      col[1] = atten[1] * co[1];
-      col[2] = atten[2] * co[2];
-      break;
-    }
-    atten[0] = atten[0] * at[0];
-    atten[1] = atten[1] * at[1];
-    atten[2] = atten[2] * at[2];
-  }  // a ray still alive at max_depth contributes black
-  return depth;
-}
+using WalkScene = WalkChunks<false>;
 
 // One bounce of the ray (o, d) at depth `depth` with throughput atten
-// (draws keyed by rid and bounce_seed + depth * 65537): sweep + shade,
-// the body of trace_from's loop above, value for value, for a loop that
-// runs one bounce per step (persist.cuh: K5 and K6).  trace_from keeps
-// its own copy, so that the walk kernel (K9) compiles as it did: with its
-// loop calling this function, K9 record took 60 registers instead of 64.
+// (draws keyed by rid and bounce_seed + depth * 65537): sweep + shade, for
+// a loop that runs one bounce per step (persist.cuh: K5, K6 and K9).
 // Returns true when the ray finished, with its terminal color in co (the
 // caller multiplies by atten); else o and d hold the next ray and atten
 // has taken this bounce's attenuation.
@@ -274,16 +255,4 @@ __device__ __forceinline__ bool bounce_once(Scene& sc, float o[3], float d[3], f
     atten[2] = atten[2] * at[2];
   }
   return fin;
-}
-
-// trace_from for the camera ray of pixel pix (camera draws keyed by rid).
-template <bool RECORD, class Scene>
-__device__ __forceinline__ int trace_ray(Scene& sc, const float* cam, uint32_t pix,
-                                         uint32_t rid, uint32_t bounce_seed, uint32_t cam_seed,
-                                         uint32_t w, int max_depth, float col[3],
-                                         float* tape = nullptr, size_t depth_stride = 0,
-                                         int ray = 0) {
-  float o[3], d[3];
-  camera_ray(cam, pix, rid, cam_seed, w, o, d);
-  return trace_from<RECORD>(sc, o, d, rid, bounce_seed, max_depth, col, tape, depth_stride, ray);
 }

@@ -22,6 +22,7 @@ bounce.scene_sweep_arrays.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -38,10 +39,9 @@ from distributed_raytracer_tpu_torch.ops.kernels.bounce import (
 from distributed_raytracer_tpu_torch.ops.kernels.mega_kernel import T_IDX
 from distributed_raytracer_tpu_torch.ops.kernels.mega_render_kernel import check_sweep_args
 from distributed_raytracer_tpu_torch.ops.kernels.mega_walk_bwd_kernel import (
-    N_PARAMS,
     check_walk_cuda_args,
     int_col,
-    walk_blocks,
+    launch_walk,
     walk_plain,
 )
 
@@ -68,29 +68,28 @@ def mega_backward_plain(cols, attrs, tape, lengths, g_color, n: int,
     return walk_plain(tape, lengths, g_color, n, _scene_params(cols, attrs), dtype, ray_grads)
 
 
-def mega_backward_cuda(cols, attrs, tape, lengths, g_color, n: int, ray_grads: bool = True):
+def mega_backward_cuda(cols, attrs, tape, lengths, g_color, n: int, ray_grads: bool = True,
+                       grid: Optional[int] = None, order: Optional[torch.Tensor] = None,
+                       with_stats: bool = False):
     """Launch csrc/mega_bwd.cu on the current stream (no sync).  Same
-    arguments and result as mega_backward_plain."""
+    arguments and result as mega_backward_plain; grid, order and
+    with_stats as mega_walk_backward_cuda's."""
     if check_sweep_args(cols, attrs, None) != n:
         raise ValueError(f"the scene arrays hold {cols.shape[1]} spheres, not n = {n}")
     check_walk_cuda_args(tape, lengths, g_color, n)
     if cols.device != tape.device:
         raise ValueError("the scene arrays must be on the tape's device")
-    r = lengths.shape[0]
     dev = tape.device
-    g_pm = torch.zeros(n + 1, N_PARAMS, dtype=torch.float32, device=dev)
-    g_ray = torch.zeros(r, 6, dtype=torch.float32, device=dev) if ray_grads else None
+    grid = grid or _build.occupancy_grid("mega_bwd", "mega_bwd_blocks_per_sm", dev,
+                                         int(ray_grads))
     fn = _build.load("mega_bwd").mega_bwd_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, p, p, i, i, p, p, p]
-    fn.restype = ctypes.c_int
-    err = fn(cols.data_ptr(), attrs.data_ptr(), n, tape.data_ptr(), lengths.data_ptr(),
-             g_color.data_ptr(), r, walk_blocks(dev, r), g_pm.data_ptr(),
-             None if g_ray is None else g_ray.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "mega_bwd_launch")
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p, p]
+    fn.restype = i
+    out = launch_walk(fn, (cols, attrs), tape, lengths, g_color, n, ray_grads, grid, order,
+                      with_stats)
     mega_backward_cuda.launches += 1
-    return (g_pm, g_ray) if ray_grads else g_pm
+    return out
 
 
 mega_backward_cuda.launches = 0

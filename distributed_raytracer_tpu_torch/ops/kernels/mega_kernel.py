@@ -74,6 +74,18 @@ def lane_use(bounces: int, warp_steps: int, warp: int = 32) -> float:
     return bounces / (warp * warp_steps) if warp_steps else 0.0
 
 
+def sweep_lane_use(tests: int, warp_tests: int, warp: int = 32) -> float:
+    """The share of a warp's lanes that test a walk chunk's slots for a ray
+    that admitted the chunk, while the warp sweeps it: the slot tests of
+    admitted chunks (per lane) over `warp` x the slot-test rounds the warps
+    issued (for each chunk that any lane of a warp admitted, its length
+    when the lanes sweep it alone, or the admitting rays x its rounds when
+    the warp sweeps it together; csrc/trace.cuh WalkChunks).  Idle lanes
+    (no live ray) and lanes whose ray did not admit the chunk both lower
+    it."""
+    return tests / (warp * warp_tests) if warp_tests else 0.0
+
+
 def static_lane_use(lengths: torch.Tensor, warp: int = 32) -> float:
     """The lane use of one thread per ray in static warps of `warp`
     consecutive rays (K5 and K6 before the persistent loop), each of which

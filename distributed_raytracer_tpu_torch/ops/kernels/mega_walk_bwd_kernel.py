@@ -16,11 +16,22 @@ that did not finish).  n is any count: the dense tracer's spheres (at most
 512) or the walk tracer's slots (8,448 at the bench's 8,192 spheres); the
 kernel sums the first 513 bins in shared memory (every bin up to 512
 spheres) and the rest with global atomics.
+
+The kernel is persistent (csrc/walk_bwd.cuh): a grid of SMs x blocks per
+SM (`_build.occupancy_grid`) of blocks that each walk a pool of reverse
+carries one row per step and refill it from a global ray counter, in the
+order `order` gives: by default the longest rays first (`longest_first`, a
+stable sort of the lengths' log2 classes in the wrapper), so that the
+pools end on short rays and drain in a few steps.  It counts the rows
+walked and the warp steps (WALK_STATS), whose ratio is its lane use
+(`mega_kernel.lane_use`).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
+
 import torch
 
 from distributed_raytracer_tpu_torch.ops.kernels import _build
@@ -41,8 +52,10 @@ from distributed_raytracer_tpu_torch.ops.kernels.mega_kernel import (
 )
 
 N_PARAMS = 9
-THREADS = 128      # csrc/mega_walk_bwd.cu
-BLOCKS_PER_SM = 8  # resident blocks the grid-stride launch aims for
+# the reverse walk's counters: the rows walked (rays that cannot contribute
+# are dropped before their first row, a carry that vanishes ends its walk)
+# and the (warp, step) pairs that walked a row
+WALK_STATS = ("rows", "warp_steps")
 
 
 def int_col(rows: torch.Tensor, col: int) -> torch.Tensor:
@@ -135,34 +148,68 @@ def check_walk_cuda_args(tape, lengths, g_color, n):
         raise ValueError("g_color must be float32")
 
 
-def walk_blocks(dev, r: int) -> int:
-    """The grid of a reverse-walk kernel: enough blocks of THREADS rays for
-    every ray, at most BLOCKS_PER_SM per SM (the rest by grid stride)."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return min(-(-r // THREADS), sms * BLOCKS_PER_SM)
+def longest_first(lengths: torch.Tensor) -> torch.Tensor:
+    """[R] int32: the reverse walks' default feed order.  The rays by
+    descending length class ceil(log2(length)) (1, 2, 3-4, 5-8, ... rows),
+    index order within a class (a stable sort): the long rays start early,
+    so the pools drain in a few steps, and the rays of a class keep the
+    tape's order, in which neighbours tend to walk the same materials.
+    scripts/torch_persist_grid.py measured it against index order and an
+    exact length order (PERF.md section 6)."""
+    cls = torch.ceil(torch.log2(lengths.clamp(min=1).to(torch.float32))).to(torch.int32)
+    return torch.sort(cls, descending=True, stable=True).indices.to(torch.int32)
 
 
-def mega_walk_backward_cuda(tape, lengths, g_color, n: int, ray_grads: bool = False):
-    """Launch csrc/mega_walk_bwd.cu on the current stream (no sync).  Same
-    arguments and result as mega_walk_backward_plain."""
-    check_walk_cuda_args(tape, lengths, g_color, n)
+def launch_walk(fn, lead: tuple, tape, lengths, g_color, n: int, ray_grads: bool,
+                grid: int, order: Optional[torch.Tensor], with_stats: bool):
+    """Launch a reverse-walk kernel of csrc/walk_bwd.cuh (K8: lead = (), K7:
+    lead = (cols, attrs)) on the current stream; returns g_pm, or (g_pm,
+    g_ray) with ray_grads, and then the [2] int64 WALK_STATS with
+    with_stats."""
     r = lengths.shape[0]
     dev = tape.device
+    if order is None:
+        order = longest_first(lengths)
+    elif (order.device != dev or order.dtype != torch.int32 or tuple(order.shape) != (r,)
+          or not order.is_contiguous()):
+        raise ValueError(f"order must be a contiguous int32 tensor of shape ({r},) on {dev}")
     g_pm = torch.zeros(n + 1, N_PARAMS, dtype=torch.float32, device=dev)
     g_ray = torch.zeros(r, 6, dtype=torch.float32, device=dev) if ray_grads else None
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)  # rows, warp steps, next ray
+    ptr = lambda x: None if x is None else x.data_ptr()
+    err = fn(*(x.data_ptr() for x in lead), tape.data_ptr(), lengths.data_ptr(),
+             g_color.data_ptr(), order.data_ptr(), r, n, grid, g_pm.data_ptr(), ptr(g_ray),
+             counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, fn.__name__)
+    out = (g_pm, g_ray) if ray_grads else (g_pm,)
+    if with_stats:
+        out = out + (counts[:2],)
+    return out if len(out) > 1 else out[0]
+
+
+def mega_walk_backward_cuda(tape, lengths, g_color, n: int, ray_grads: bool = False,
+                            grid: Optional[int] = None, order: Optional[torch.Tensor] = None,
+                            with_stats: bool = False):
+    """Launch csrc/mega_walk_bwd.cu on the current stream (no sync).  Same
+    arguments and result as mega_walk_backward_plain.  grid: the most
+    blocks of the persistent kernel (by default as many as fit the card
+    at once; 1 makes one block walk every ray); order: the order in which
+    the rays are fed ([R] int32 permutation; by default longest_first);
+    with_stats: also return the [2] int64 WALK_STATS."""
+    check_walk_cuda_args(tape, lengths, g_color, n)
+    dev = tape.device
+    grid = grid or _build.occupancy_grid("mega_walk_bwd", "mega_walk_bwd_blocks_per_sm", dev,
+                                         int(ray_grads))
     fn = _build.load("mega_walk_bwd").mega_walk_bwd_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, p, p, p]
-    fn.restype = ctypes.c_int
-    err = fn(tape.data_ptr(), lengths.data_ptr(), g_color.data_ptr(), r, n,
-             walk_blocks(dev, r), g_pm.data_ptr(), None if g_ray is None else g_ray.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "mega_walk_bwd_launch")
+    fn.argtypes = [p, p, p, p, i, i, i, p, p, p, p]
+    fn.restype = i
+    out = launch_walk(fn, (), tape, lengths, g_color, n, ray_grads, grid, order, with_stats)
     if ray_grads:
         mega_walk_backward_cuda.ray_launches += 1
-        return g_pm, g_ray
-    mega_walk_backward_cuda.launches += 1
-    return g_pm
+    else:
+        mega_walk_backward_cuda.launches += 1
+    return out
 
 
 mega_walk_backward_cuda.launches = 0      # without ray grads

@@ -64,6 +64,10 @@ _MASK32 = 0xFFFFFFFF
 # the walk's counters, in the order of every `stats` tensor: (ray, bounce)
 # sweeps, chunks admitted, slot tests in them, those tests with disc >= 0
 STATS = ("bounces", "admitted", "tests", "near")
+# the kernel's warp counters, which depend on the schedule: the (warp,
+# step) pairs that swept, and the slot-test rounds the warps issued
+# (csrc/trace.cuh WalkChunks)
+WARP_STATS = ("warp_steps", "warp_tests")
 
 
 class WalkPack(NamedTuple):
@@ -218,6 +222,8 @@ class WalkOut(NamedTuple):
     lengths: torch.Tensor  # [R] int32 rows per ray
     colors: torch.Tensor   # [R, 3] f32
     stats: torch.Tensor    # [4] int64, STATS
+    # [2] int64 WARP_STATS of the kernel; None from the plain version
+    warp_stats: Optional[torch.Tensor] = None
 
 
 def mega_walk_forward_camera_plain(scene_pack, attrs, bounds, chunk_len, cam_row, *,
@@ -272,33 +278,65 @@ def _lib():
     lib = _build.load("mega_walk")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mega_walk_render_launch.argtypes = [p, p, p, p, i, i, i, p, i, i, ctypes.c_uint, i, i,
-                                            i, i, i, p, p, p]
+                                            i, i, p, p, i, p]
     lib.mega_walk_record_launch.argtypes = [p, p, p, p, i, i, i, p, i, i, i, i, i, i, p, p, p,
-                                            p, p]
+                                            p, i, p]
     lib.mega_walk_render_launch.restype = lib.mega_walk_record_launch.restype = i
     return lib
 
 
+def _counts(dev) -> torch.Tensor:
+    """The [7] int64 counters a walk launch adds to (csrc/mega_walk.cu):
+    bounces, warp steps, the ray counter, chunks admitted, slot tests,
+    near tests and the warps' slot tests."""
+    return torch.zeros(7, dtype=torch.int64, device=dev)
+
+
+def _stats(counts: torch.Tensor) -> torch.Tensor:
+    """The launch's STATS, in the plain versions' order."""
+    return torch.cat((counts[0:1], counts[3:6]))
+
+
+def _warp_stats(counts: torch.Tensor) -> torch.Tensor:
+    """[2] int64: WARP_STATS (counters 1 and 6)."""
+    return counts[1::5]
+
+
+def _grid(dev, record: bool, grid: Optional[int]) -> int:
+    return grid or _build.occupancy_grid("mega_walk", "mega_walk_blocks_per_sm", dev,
+                                         int(record))
+
+
 def mega_walk_sample_cuda(scene_pack, attrs, bounds, chunk_len, cam_row, *, bounce_seed: int,
                           cam_seed: int, rid_base: int, pix0: int, n_valid: int, n_cap: int,
-                          w: int, max_depth: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                          w: int, max_depth: int, grid: Optional[int] = None,
+                          with_warp_stats: bool = False):
     """Launch the render instantiation of csrc/mega_walk.cu on the current
     stream (no sync).  Same arguments and results as
-    mega_walk_sample_plain; the stats are counted by the kernel."""
+    mega_walk_sample_plain; the stats are counted by the kernel.  grid: the
+    most blocks of the persistent kernel (by default as many as fit the
+    card at once; 1 makes one block trace every ray).  with_warp_stats:
+    also return the [2] int64 WARP_STATS, for lane_use and
+    sweep_lane_use."""
     n, chunk, n_chunks = _check_walk_args(scene_pack, attrs, bounds, chunk_len, cam_row)
     if not 0 <= n_valid <= n_cap or n_cap < 1:
         raise ValueError(f"need 0 <= n_valid <= n_cap, n_cap >= 1, got {n_valid}, {n_cap}")
     dev = scene_pack.device
+    n_work = n_valid if max_depth > 0 else 0  # rows past n_work are black
     colors = torch.empty(n_cap, 3, dtype=torch.float32, device=dev)
-    stats = torch.zeros(len(STATS), dtype=torch.int64, device=dev)
+    if n_work < n_cap:
+        colors[n_work:].zero_()
+    counts = _counts(dev)
     err = _lib().mega_walk_render_launch(
         scene_pack.data_ptr(), attrs.data_ptr(), bounds.data_ptr(), chunk_len.data_ptr(), n,
         chunk, n_chunks, cam_row.data_ptr(), wrap_i32(bounce_seed), wrap_i32(cam_seed),
-        rid_base & _MASK32, pix0, n_valid, n_cap, w, max_depth, colors.data_ptr(),
-        stats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        rid_base & _MASK32, pix0, n_work, w, max_depth, colors.data_ptr(), counts.data_ptr(),
+        _grid(dev, False, grid), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mega_walk_render_launch")
     mega_walk_sample_cuda.launches += 1
-    return colors, stats
+    if with_warp_stats:
+        return colors, _stats(counts), _warp_stats(counts)
+    return colors, _stats(counts)
 
 
 mega_walk_sample_cuda.launches = 0
@@ -306,10 +344,11 @@ mega_walk_sample_cuda.launches = 0
 
 def mega_walk_forward_camera_cuda(scene_pack, attrs, bounds, chunk_len, cam_row, *,
                                   bounce_seed: int, cam_seed: int, pix0: int, n_valid: int,
-                                  w: int, max_depth: int) -> WalkOut:
+                                  w: int, max_depth: int, grid: Optional[int] = None) -> WalkOut:
     """Launch the record instantiation of csrc/mega_walk.cu on the current
     stream (no sync).  Same arguments and results as
-    mega_walk_forward_camera_plain."""
+    mega_walk_forward_camera_plain, and the kernel's WARP_STATS; grid as
+    mega_walk_sample_cuda's."""
     n, chunk, n_chunks = _check_walk_args(scene_pack, attrs, bounds, chunk_len, cam_row)
     if n_valid < 1 or max_depth < 1:
         raise ValueError(f"need n_valid >= 1 and max_depth >= 1, got {n_valid}, {max_depth}")
@@ -317,15 +356,15 @@ def mega_walk_forward_camera_cuda(scene_pack, attrs, bounds, chunk_len, cam_row,
     tape = torch.empty(max_depth, n_valid, TAPE_COLS, dtype=torch.float32, device=dev)
     lengths = torch.empty(n_valid, dtype=torch.int32, device=dev)
     colors = torch.empty(n_valid, 3, dtype=torch.float32, device=dev)
-    stats = torch.zeros(len(STATS), dtype=torch.int64, device=dev)
+    counts = _counts(dev)
     err = _lib().mega_walk_record_launch(
         scene_pack.data_ptr(), attrs.data_ptr(), bounds.data_ptr(), chunk_len.data_ptr(), n,
         chunk, n_chunks, cam_row.data_ptr(), wrap_i32(bounce_seed), wrap_i32(cam_seed), pix0,
         n_valid, w, max_depth, tape.data_ptr(), lengths.data_ptr(), colors.data_ptr(),
-        stats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        counts.data_ptr(), _grid(dev, True, grid), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mega_walk_record_launch")
     mega_walk_forward_camera_cuda.launches += 1
-    return WalkOut(tape, lengths, colors, stats)
+    return WalkOut(tape, lengths, colors, _stats(counts), _warp_stats(counts))
 
 
 mega_walk_forward_camera_cuda.launches = 0

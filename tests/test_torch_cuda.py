@@ -509,3 +509,121 @@ def test_persistent_lane_use_on_card(card):
     static = mk.static_lane_use(out.lengths)
     for b, s in ((bounces, steps), (out.bounces, out.warp_steps)):
         assert static < mk.lane_use(int(b), int(s)) <= 1.0
+
+
+# K9 and the reverse walks K8 and K7 on the same persistent loop: bit for
+# bit (K9) or within the f32 sum-order band (K8, K7) of their plain
+# versions at the occupancy grid and at one block.
+
+
+@pytest.mark.parametrize("grid", [None, 1])
+def test_persistent_walk_matches_plain_on_card(card, grid):
+    """K9 render and record on the 8,192-sphere field: colors, tape rows,
+    lengths and the per-lane counters equal to the plain versions'; the
+    warp counters give lane uses in (0, 1]."""
+    scene = presets.random_sphere_field(8192, seed=5, extent=30.0)
+    camera = _walk_camera(120)
+    _, args = _walk_args(scene, camera, card)
+    r = camera.num_pixels
+    kw = dict(bounce_seed=123456, cam_seed=987654, pix0=0, n_valid=r, w=camera.image_width,
+              max_depth=camera.max_depth)
+    got, got_st, warp = mwk.mega_walk_sample_cuda(*args, rid_base=5 * r, n_cap=r, grid=grid,
+                                                  with_warp_stats=True, **kw)
+    want, want_st = mwk.mega_walk_sample_plain(*args, rid_base=5 * r, n_cap=r, **kw)
+    rec = mwk.mega_walk_forward_camera_cuda(*args, grid=grid, **kw)
+    rec_plain = mwk.mega_walk_forward_camera_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_st, want_st)
+    assert torch.equal(rec.lengths, rec_plain.lengths)
+    assert torch.equal(_written_rows(rec), _written_rows(rec_plain))
+    assert torch.equal(rec.colors, rec_plain.colors) and torch.equal(rec.stats, rec_plain.stats)
+    for st, ws in ((got_st, warp), (rec.stats, rec.warp_stats)):
+        assert 0.0 < mk.lane_use(int(st[0]), int(ws[0])) <= 1.0
+        assert 1 / 32 <= mk.sweep_lane_use(int(st[2]), int(ws[1])) <= 1.0
+
+
+@pytest.mark.parametrize("max_depth", [0, 8])
+def test_persistent_walk_shard_on_card(card, max_depth):
+    """K9 render with n_valid < n_cap and a pix0 offset: rows past n_valid
+    are zero, the rest the plain version's (all zero at max_depth 0)."""
+    scene = presets.random_sphere_field(600, seed=5, extent=30.0)
+    camera = _walk_camera(64).replace(max_depth=max(max_depth, 1))
+    _, args = _walk_args(scene, camera, card)
+    kw = dict(bounce_seed=5, cam_seed=6, rid_base=(1 << 31) + 17, pix0=100, n_valid=1000,
+              n_cap=1300, w=camera.image_width, max_depth=max_depth)
+    for grid in (None, 1):
+        got, got_st = mwk.mega_walk_sample_cuda(*args, grid=grid, **kw)
+        want, want_st = mwk.mega_walk_sample_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got_st, want_st)
+        assert torch.count_nonzero(got[1000:]) == 0
+
+
+def _walk_g(r, card):
+    """g_color with every tenth ray's cotangent zero (dropped at refill)."""
+    g = torch.randn(r, 3, generator=torch.Generator().manual_seed(3))
+    g[::10] = 0.0
+    return g.to(card)
+
+
+@pytest.mark.parametrize("ray_grads", [False, True])
+@pytest.mark.parametrize("grid", [None, 1])
+def test_persistent_walk_backward_on_card(card, ray_grads, grid):
+    """K8 on a dense tape (final scene, depth 8) and on a walk tape past
+    512 slots against its plain version (1e-4 per column, the band of
+    tests/test_mega_bwd.py:104; with ray grads also the ray cotangents),
+    fed in index order and longest first; the rows walked and the ray
+    cotangents do not depend on the grid or the order."""
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = presets.final_scene_camera(64).replace(max_depth=8)
+    args, kw = _fwd_args(scene, camera, card)
+    field = presets.random_sphere_field(8192, seed=5, extent=30.0)
+    wcam = _walk_camera(96)
+    pack, wargs = _walk_args(field, wcam, card)
+    for out, n in ((mk.mega_forward_camera(*args, None, **kw), scene.num_spheres),
+                   (mwk.mega_walk_forward_camera(*wargs, bounce_seed=11, cam_seed=22, pix0=0,
+                                                 n_valid=wcam.num_pixels, w=wcam.image_width,
+                                                 max_depth=8), pack.n_slots)):
+        g = _walk_g(out.lengths.shape[0], card)
+        want = wbk.mega_walk_backward_plain(out.tape, out.lengths, g, n, ray_grads=ray_grads)
+        want = want if ray_grads else (want,)
+        runs = []
+        index = torch.arange(out.lengths.shape[0], dtype=torch.int32, device=card)
+        for order in (index, None):  # index order, then the default: longest first
+            *got, st = wbk.mega_walk_backward_cuda(out.tape, out.lengths, g, n,
+                                                   ray_grads=ray_grads, grid=grid, order=order,
+                                                   with_stats=True)
+            torch.cuda.synchronize()
+            assert _col_err(got[0][:n], want[0][:n]) < 1e-4
+            assert float(got[0][n].abs().max()) == 0.0  # the no-hit bin
+            if ray_grads:
+                assert _col_err(got[1], want[1]) < 1e-4
+            assert 0.0 < mk.lane_use(int(st[0]), int(st[1])) <= 1.0
+            runs.append((got, int(st[0])))
+        assert runs[0][1] == runs[1][1]
+        if ray_grads:
+            assert torch.equal(runs[0][0][1], runs[1][0][1])
+
+
+@pytest.mark.parametrize("grid", [None, 1])
+def test_persistent_mega_backward_on_card(card, grid):
+    """K7 against its plain version (1e-4 per column) and against K8 with
+    ray grads on the same tape: equal ray cotangents and rows walked."""
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = presets.final_scene_camera(64).replace(max_depth=8)
+    (cols, attrs, _), _ = _fwd_args(scene, camera, card)
+    o, d = _camera_rays(camera, card)
+    out = mk.mega_forward(cols, attrs, o, d, bounce_seed=123456, max_depth=8)
+    g = _walk_g(camera.num_pixels, card)
+    n = scene.num_spheres
+    got_pm, got_ray, st = mbk.mega_backward_cuda(cols, attrs, out.tape, out.lengths, g, n,
+                                                 grid=grid, with_stats=True)
+    want_pm, want_ray = mbk.mega_backward_plain(cols, attrs, out.tape, out.lengths, g, n)
+    k8_pm, k8_ray, k8_st = wbk.mega_walk_backward_cuda(out.tape, out.lengths, g, n,
+                                                       ray_grads=True, grid=grid,
+                                                       with_stats=True)
+    torch.cuda.synchronize()
+    assert _col_err(got_pm[:n], want_pm[:n]) < 1e-4
+    assert _col_err(got_ray, want_ray) < 1e-4
+    assert torch.equal(got_ray, k8_ray) and int(st[0]) == int(k8_st[0])
+    assert _col_err(got_pm[:n], k8_pm[:n]) < 1e-4

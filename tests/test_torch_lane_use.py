@@ -1,15 +1,21 @@
-"""The lane-use reckonings of K5 and K6 (ops/kernels/mega_kernel.py).
+"""The lane-use reckonings of the persistent kernels (ops/kernels/mega_kernel.py).
 
 static_lane_use is the share of lanes that one thread per ray in static
 warps of 32 consecutive rays keeps busy, reckoned from the rays' bounce
-counts; lane_use is the persistent kernels' own, from their bounce and
-warp-step counters.  chip_smoke.py reports both at the main path.  These
-run on the CPU on synthetic lengths with known answers; no JAX."""
+counts; lane_use is the persistent kernels' own, from their bounce (or
+row) and warp-step counters; sweep_lane_use is the walk's (K9), from its
+per-lane slot tests and the slot tests its warps issued.  chip_smoke.py
+reports them at the main path.  These run on the CPU on synthetic counts
+with known answers; no JAX."""
 
 import pytest
 import torch
 
-from distributed_raytracer_tpu_torch.ops.kernels.mega_kernel import lane_use, static_lane_use
+from distributed_raytracer_tpu_torch.ops.kernels.mega_kernel import (
+    lane_use,
+    static_lane_use,
+    sweep_lane_use,
+)
 
 
 @pytest.mark.parametrize("lengths,want", [
@@ -60,3 +66,34 @@ def test_static_warps_bound_the_counters():
         b = int(lengths.sum())
         packed = lane_use(b, -(-b // 32))
         assert static_lane_use(lengths) <= packed <= 1.0
+
+
+@pytest.mark.parametrize("tests,warp_tests,want", [
+    # every lane of every warp admitted every chunk its warp swept
+    (32 * 256, 256, 1.0),
+    # one lane of 32 admitted the chunk, the warp swept it once
+    (256, 256, 1 / 32),
+    # a chunk of 256 slots admitted by 8 lanes, another of 100 by 32
+    (8 * 256 + 32 * 100, 256 + 100, (8 * 256 + 32 * 100) / (32 * 356)),
+    # no chunk swept
+    (0, 0, 0.0),
+])
+def test_sweep_lane_use(tests, warp_tests, want):
+    assert sweep_lane_use(tests, warp_tests) == pytest.approx(want, rel=1e-12)
+
+
+def test_sweep_lane_use_of_the_warp_width():
+    # warps of 4 lanes: 3 of 4 admitted a 10-slot chunk, then 1 of 4 a 2-slot one
+    assert sweep_lane_use(3 * 10 + 1 * 2, 10 + 2, warp=4) == pytest.approx(32 / 48, rel=1e-12)
+    assert sweep_lane_use(7, 7, warp=1) == 1.0
+
+
+def test_sweep_lane_use_bounds():
+    """Each warp slot test stands for between 1 and 32 lane slot tests, so
+    sweep_lane_use lies in [1/32, 1] whenever a chunk was swept."""
+    g = torch.Generator().manual_seed(1)
+    for _ in range(10):
+        lens = torch.randint(1, 257, (20,), generator=g)
+        lanes = torch.randint(1, 33, (20,), generator=g)
+        got = sweep_lane_use(int((lens * lanes).sum()), int(lens.sum()))
+        assert 1 / 32 <= got <= 1.0
