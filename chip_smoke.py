@@ -27,9 +27,15 @@ that one thread per ray in static warps of 32 would have had on the same
 rays; K9 also reports its sweep lane use (how many of the lanes sweeping
 a chunk admitted it).  The reverse walks K8 and K7, persistent blocks of
 reverse carries (csrc/walk_bwd.cuh), are held to their plain versions
-within their bands at both grids, and their lane use is reported.  Any
-failed phase raises, so the exit code is nonzero and no result line is
-printed.  Without a CUDA card it exits with code 2.
+within their bands at both grids, and their lane use is reported.  The
+culled kernels K14 and K12/K13 walk a ray's chunks with a group of lanes
+(csrc/trace.cuh group_walk); they are held bit for bit, counters
+included, also on a pool batch cut to an odd lane count, and their group
+lane use (slot tests over the slot-test lanes the groups issue) and
+launch shape are printed.  Kernels shorter than their wrapper's host work
+(K10-K14) are timed with the stream held while their launches are queued
+(kernel_ms).  Any failed phase raises, so the exit code is nonzero and no
+result line is printed.  Without a CUDA card it exits with code 2.
 
     python3 chip_smoke.py --record out/chip_smoke.json
 
@@ -144,10 +150,17 @@ RAY_CALM_BAND = 1e-3
 RAY_TRACER_RAYS = 262144
 # the fused engine's culled chunk (cli.py: --accel culled on the fused engine)
 FUSED_CHUNK = 128
+# the odd batch on which the group walks (K14, K12/K13) are also held: a
+# pool batch's first lanes, one short of the pool, so the last block (and,
+# at fewer than 32 lanes per ray, the last warp) is partial
+ODD_LANES = 16383
 # bytes of one lane of a fused bounce: o and d in (24), active (1) and the
 # ray id (4); next o and d, attenuation, color and the unit draw out (60),
 # finished, idx and u (12) and hit (1)
 LANE_BYTES = 102
+# clock cycles a second that kernel_ms's sleep counts at least (the H100
+# SXM's SM clock is at most 1,980 MHz, so the sleep lasts no less than asked)
+SLEEP_CYCLES_PER_S = 2.0e9
 
 
 class SmokeFailure(RuntimeError):
@@ -215,6 +228,30 @@ def fp32_peak_flops() -> float:
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() over reps calls, by CUDA events."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over reps calls on the card alone, by CUDA
+    events, for kernels shorter than their wrapper's host work (argument
+    checks, output allocations), which cuda_ms would time with the host's
+    gaps between the launches: the calls run once untimed (a warm-up that
+    also times the host's enqueue of reps calls), then a sleep kernel holds
+    the stream for twice that while the calls are queued again between two
+    events, so the card runs them back to back."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2.0 * host_s + 1e-3) * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
@@ -1185,15 +1222,14 @@ class EngineBounces:
 
     def replay_ms(self, kernel) -> float:
         """The card time of the run's launches: each replayed on its
-        inputs, back to back, between two CUDA events (in the run itself
-        the card waits for the host between launches), each output dropped
-        at once so the allocator reuses its memory."""
+        inputs, back to back, between two CUDA events (kernel_ms; in the
+        run itself the card waits for the host between launches), each
+        output dropped at once so the allocator reuses its memory."""
         def replay():
             for args in self.inputs:
                 kernel(*args)
 
-        kernel(*self.inputs[0])  # warm the allocator
-        return cuda_ms(replay, 1)
+        return kernel_ms(replay, 1)
 
 
 def engine_ops_per_block(dev, scene, cam, culled=None) -> float:
@@ -1242,6 +1278,7 @@ def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float) -> dic
     the CLI."""
     from distributed_raytracer_tpu_torch.ops.kernels import bounce_kernel as bk
     from distributed_raytracer_tpu_torch.ops.kernels import culled_bounce_kernel as cb
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
     from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_kernel as mwk
     from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import build_culled_scene
     from distributed_raytracer_tpu_torch.render.progressive import AccumState, render_progressive
@@ -1285,39 +1322,54 @@ def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float) -> dic
             f"top-center pixel {top.tolist()}")
         return run, rec
 
-    def hold(label, kernel, plain, rec):
+    def hold(label, kernel, plain, rec, group=False):
         """The kernel against its plain version on the run's first, middle
-        and last pool batch: every output and the counters bit for bit.
-        Returns (max abs err, kernel ms, plain ms, counters) at the middle
-        batch, a full pool in the steady state."""
+        and last pool batch: every output and the counters bit for bit;
+        with group (K14) also on the middle batch's first ODD_LANES lanes
+        (a partial block and, at G < 32, a partial warp of groups), and
+        the slot-test lanes its groups issue counted.  Returns (max abs
+        err, kernel ms, plain ms, counters, group lane use or None) at the
+        middle batch, a full pool in the steady state."""
         require(rec.mid < len(rec.inputs), f"{label}: the run took {len(rec.inputs)} bounces, "
                 f"fewer than {rec.mid + 1}")
-        err, plain_ms = 0.0, {}
-        for at in (0, rec.mid, len(rec.inputs) - 1):
-            o, d, live, lane_ray, seed = rec.inputs[at]
+        err, plain_ms, use = 0.0, {}, None
+        batches = [(at, rec.inputs[at]) for at in (0, rec.mid, len(rec.inputs) - 1)]
+        if group:
+            batches.append((f"{rec.mid}, first {ODD_LANES:,} lanes",
+                            tuple(x[:ODD_LANES] for x in rec.inputs[rec.mid][:4])
+                            + rec.inputs[rec.mid][4:]))
+        for at, (o, d, live, lane_ray, seed) in batches:
             st_k, st_p = (torch.zeros(4, dtype=torch.int64, device=dev) for _ in range(2))
-            got = kernel(o, d, live, lane_ray, seed, stats=st_k)
+            issued = torch.zeros(1, dtype=torch.int64, device=dev)
+            got = kernel(o, d, live, lane_ray, seed, stats=st_k,
+                         **(dict(issued=issued) if group else {}))
             want, plain_ms[at] = cuda_timed(lambda: plain(o, d, live, lane_ray, seed,
                                                           stats=st_p))
             diff = max(float((getattr(got, k).float() - getattr(want, k).float()).abs().max())
                        for k in bk.BounceOut._fields)
             same = all(torch.equal(getattr(got, k), getattr(want, k))
                        for k in bk.BounceOut._fields)
+            lanes = ""
+            if group:
+                lanes = (f", {int(issued):,} slot-test lanes issued, group lane use "
+                         f"{mk.group_lane_use(int(st_k[2]), int(issued)):.4f}")
+                if at == rec.mid:
+                    use = mk.group_lane_use(int(st_k[2]), int(issued))
             log(f"[fused] {label}, bounce {at} ({int(live.sum()):,} of {live.numel():,} lanes "
                 f"live): kernel vs plain max abs err {diff:.3e}, all nine outputs equal bit for "
-                f"bit {same}, counters kernel {st_k.tolist()} plain {st_p.tolist()}; plain "
-                f"{plain_ms[at]:.1f} ms")
+                f"bit {same}, counters kernel {st_k.tolist()} plain {st_p.tolist()}{lanes}; "
+                f"plain {plain_ms[at]:.1f} ms")
             require(same, f"{label}: the kernel differs from its plain version")
             require(torch.equal(st_k, st_p), f"{label}: counters differ from the plain count")
             err = max(err, diff)
         o, d, live, lane_ray, seed = rec.inputs[rec.mid]
         stats = torch.zeros(4, dtype=torch.int64, device=dev)
         kernel(o, d, live, lane_ray, seed, stats=stats)
-        ms = cuda_ms(lambda: kernel(o, d, live, lane_ray, seed), 20)
-        return err, ms, plain_ms[rec.mid], stats
+        ms = kernel_ms(lambda: kernel(o, d, live, lane_ray, seed), 20)
+        return err, ms, plain_ms[rec.mid], stats, use
 
     def row(run, check, n_live, finite, scene_bytes):
-        err, ms, plain_ms, stats = check
+        err, ms, plain_ms, stats, use = check
         cost = bounce_cost(stats, n_live, finite, scene_bytes)
         whole = bounce_cost(torch.tensor(run["stats"]), n_live, finite,
                             scene_bytes * run["launches"])
@@ -1325,8 +1377,11 @@ def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float) -> dic
             f"{cost['tests']:,} live-sphere tests, {cost['near']:,} with disc >= 0), bound "
             f"{cost['flops'] / peak * 1e3:.4f} ms; the run's {run['launches']} launches "
             f"{run['kernel_ms']:.1f} ms against a bound of {whole['flops'] / peak * 1e3:.2f} ms")
-        return dict(launches=run["launches"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    flops=cost["flops"], bytes=cost["bytes"])
+        out = dict(launches=run["launches"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   flops=cost["flops"], bytes=cost["bytes"])
+        if use is not None:
+            out["group_lane_use"] = use
+        return out
 
     n_main = cam_main.num_pixels
     live_final = int((final.radii > 0).sum())
@@ -1353,6 +1408,11 @@ def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float) -> dic
         return (lambda *a, **k: cb.culled_fused_bounce_cuda(*a[:4], pack, *a[4:], **k),
                 lambda *a, **k: cb.culled_fused_bounce_plain(*a[:4], pack, *a[4:], **k))
 
+    g, threads = cb.group_shape()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"[fused] K14's group walk: {g} lanes per pool lane, blocks of {threads} threads; a pool "
+        f"of {DEFAULT_POOL:,} lanes launches {-(-DEFAULT_POOL * g // threads):,} blocks, "
+        f"{DEFAULT_POOL * g / 32 / sms:.0f} warps per SM ({sms} SMs)")
     culled_f = build_culled_scene(final, chunk=FUSED_CHUNK)
     pack_f = cb.build_culled_pack(culled_f).to(dev)
     run_c, rec_c = drive("culled, final 1200x675 depth 50 spp 4, tiled", "culled_fused_bounce",
@@ -1366,7 +1426,7 @@ def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float) -> dic
     def finite(pack):
         return int(torch.isfinite(pack.bounds[:pack.n_chunks, 3]).sum())
 
-    chk_c = hold("K14 final", *culled_pair(pack_f), rec_c)
+    chk_c = hold("K14 final", *culled_pair(pack_f), rec_c, group=True)
     k14 = row(run_c, chk_c, live_final, finite(pack_f), pack_bytes(pack_f))
     del rec_c
     field = presets.random_sphere_field(8192, seed=5, extent=30.0)
@@ -1378,7 +1438,7 @@ def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float) -> dic
     run_w, rec_w = drive("culled, field 1024x576 depth 8 spp 4, tiled", "culled_fused_bounce",
                          cb.culled_fused_bounce_cuda, culled_pair(pack_w)[0], culled_w.scene,
                          cam_big, culled=culled_w, ray_order="tiled")
-    chk_w = hold("K14 field", *culled_pair(pack_w), rec_w)
+    chk_w = hold("K14 field", *culled_pair(pack_w), rec_w, group=True)
     k14w = row(run_w, chk_w, int((field.radii > 0).sum()), finite(pack_w), pack_bytes(pack_w))
     del rec_w
 
@@ -1452,15 +1512,15 @@ class RecordIntersect:
     def replay_ms(self, launch, prep=lambda o, d: (o, d)) -> float:
         """The card time of the run's launches: launch(*prep(o, d)) for
         each call, the operands prepared first, then the launches back to
-        back between two CUDA events, each output dropped at once."""
+        back between two CUDA events (kernel_ms), each output dropped at
+        once."""
         args = [prep(o, d) for o, d in self.inputs]
 
         def replay():
             for a in args:
                 launch(*a)
 
-        launch(*args[0])  # warm the allocator
-        return cuda_ms(replay, 1)
+        return kernel_ms(replay, 1)
 
     def picks(self):
         """The first, middle and last batch of the run."""
@@ -1533,6 +1593,7 @@ def check_reference_path(dev, presets, final, cam_main, peak: float) -> dict:
     from distributed_raytracer_tpu_torch.ops.intersect import HitResult
     from distributed_raytracer_tpu_torch.ops.kernels import culled_kernel as ck
     from distributed_raytracer_tpu_torch.ops.kernels import intersect_kernel as ik
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
     from distributed_raytracer_tpu_torch.render import wavefront as wf
     from distributed_raytracer_tpu_torch.render.image import read_ppm
     from distributed_raytracer_tpu_torch.render.order import tile_permutation
@@ -1593,7 +1654,7 @@ def check_reference_path(dev, presets, final, cam_main, peak: float) -> dict:
         (t_p, i_p), plain_ms = cuda_timed(lambda: ik.closest_hit_plain(o, d, sph))
         same = torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
         err = float((t_k - t_p).abs().max())
-        ms = cuda_ms(lambda: ik.closest_hit_cuda(o, d, sph), 50)
+        ms = kernel_ms(lambda: ik.closest_hit_cuda(o, d, sph), 50)
         cost = closest_hit_cost(o.shape[0], n_live, int(stats), peak, sph.shape[0])
         log(f"[k11] {label}: {o.shape[0]:,} rays x {n_live} live spheres, kernel == plain bit "
             f"for bit {same} (t max abs err {err:.3e}); {ms:.4f} ms per launch, bound "
@@ -1633,6 +1694,10 @@ def check_reference_path(dev, presets, final, cam_main, peak: float) -> dict:
     require(torch.equal(with_k11, with_plain), "the K11 engine run differs from the plain one")
 
     # --- phase 26: K12 (--accel culled) and K13 over the field, tiled ---
+    g, threads = ck.group_shape()
+    log(f"[wavefront] K12/K13's group walk: {g} lanes per ray, blocks of {threads} threads; a "
+        f"pool batch of {wf.DEFAULT_POOL:,} rays launches "
+        f"{-(-wf.DEFAULT_POOL * g // threads):,} blocks")
     cam_big = walk_camera(presets, 1024)
     culled_w = ck.build_culled_scene(field, chunk=FUSED_CHUNK)
     runs, recs = {}, {}
@@ -1654,24 +1719,28 @@ def check_reference_path(dev, presets, final, cam_main, peak: float) -> dict:
         launch = ck.culled_closest_hit_walk_cuda if walk else ck.culled_closest_hit_cuda
         args = (o, d, sph, bounds, order, n_visit, culled.chunk, br)
         stats = torch.zeros(len(ck.CULLED_STATS), dtype=torch.int64, device=dev)
-        t_k, i_k = launch(*args, stats=stats)
+        issued = torch.zeros(1, dtype=torch.int64, device=dev)
+        t_k, i_k = launch(*args, stats=stats, issued=issued)
         (t_p, i_p), plain_ms = cuda_timed(
             lambda: ck.culled_closest_hit_plain(o, d, sph, order, culled.chunk, br))
         same = torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
-        ms = cuda_ms(lambda: launch(*args), 20)
+        ms = kernel_ms(lambda: launch(*args), 20)
         n_chunks = order.shape[1]
         cost = culled_cost(stats, n_chunks, sph.shape[0])
         dense = o.shape[0] * sph.shape[0]  # K11's tests over the culled scene's slots
+        use = mk.group_lane_use(cost["tests"], int(issued))
         log(f"[k1{3 if walk else 2}] {label}: {o.shape[0]:,} rays, {n_chunks} chunks of "
             f"{culled.chunk}, plan visits {float(n_visit.float().mean()):.1f} per block; kernel "
             f"== plain bit for bit {same}; {ms:.4f} ms per launch, bound "
             f"{cost['flops'] / peak * 1e3:.4f} ms ({cost['bound_tests']:,} bound tests, "
             f"{cost['admitted']:,} chunks admitted, {cost['tests']:,} slot tests = "
-            f"{cost['tests'] / dense:.1%} of a dense sweep's, {cost['near']:,} with disc >= 0), "
+            f"{cost['tests'] / dense:.1%} of a dense sweep's, {cost['near']:,} with disc >= 0; "
+            f"{int(issued):,} slot-test lanes issued, group lane use {use:.4f}), "
             f"plain {plain_ms:.2f} ms")
         require(same, f"{label}: the culled kernel differs from its plain version")
+        require(cost["rays"] == o.shape[0], f"{label}: the kernel counted {cost['rays']} rays")
         return dict(max_abs_err=float((t_k - t_p).abs().max()), ms=ms, plain_ms=plain_ms,
-                    admitted_share=cost["tests"] / dense, **cost)
+                    admitted_share=cost["tests"] / dense, group_lane_use=use, **cost)
 
     rows = {}
     for mode in ("grid", "walk"):
@@ -1679,6 +1748,8 @@ def check_reference_path(dev, presets, final, cam_main, peak: float) -> dict:
         for o, d in rec.picks():
             hold_culled(f"{mode}, field pool batch", culled_w, o, d, mode == "walk")
         o_m, d_m = rec.inputs[len(rec.inputs) // 2]
+        hold_culled(f"{mode}, field pool batch (middle), first {ODD_LANES:,} rays", culled_w,
+                    o_m[:ODD_LANES], d_m[:ODD_LANES], mode == "walk")
         rows[mode] = hold_culled(f"{mode}, field pool batch (middle)", culled_w, o_m, d_m,
                                  mode == "walk")
         bounds = ck.culled_bounds(culled_w, dev)
@@ -1737,8 +1808,8 @@ def check_reference_path(dev, presets, final, cam_main, peak: float) -> dict:
         require(read_ppm(str(out_ppm)).shape == (675, 1200, 3), "CLI PPM is not 1200x675")
 
     def row(check, launches):
-        return dict(launches=launches, max_abs_err=check["max_abs_err"], ms=check["ms"],
-                    plain_ms=check["plain_ms"], flops=check["flops"], bytes=check["bytes"])
+        return dict(launches=launches, **{k: check[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "flops", "bytes", "group_lane_use") if k in check})
 
     return {
         "closest_hit": row(k11, run_k11["launches"]),
@@ -1940,12 +2011,14 @@ def main() -> int:
         for key in ("max_norm_err",  # g_pm's columns span orders of magnitude
                     # the persistent kernels (K5-K9): lane use, the walk's sweep lane use,
                     # one thread per ray in static warps of 32
-                    "lane_use", "sweep_lane_use", "lane_use_static"):
+                    "lane_use", "sweep_lane_use", "lane_use_static",
+                    # the group walk (K14, K12/K13): slot tests / slot-test lanes issued
+                    "group_lane_use"):
             if key in g:
                 kernels[-1][key] = g[key]
     for kd in kernels:
         lane = "".join(f", {key.replace('_', ' ')} {kd[key]:.4f}" for key in (
-            "lane_use", "sweep_lane_use", "lane_use_static") if key in kd)
+            "lane_use", "sweep_lane_use", "lane_use_static", "group_lane_use") if key in kd)
         log(f"[kernel] {kd['name']}: {kd['ms']:.3f} ms, bound {kd['bound_ms']:.4f} ms "
             f"({kd['bound_by']}), plain {kd['plain_ms']:.1f} ms, launches {kd['launches']}, "
             f"max_abs_err {kd['max_abs_err']:.3e}{lane}")

@@ -31,69 +31,85 @@
 // (r2 (1 + 1e-4) + 1e-5), so a ray's own test cannot reject its winner at
 // the float32 edge of a tight bound.
 //
-// What is not carried over: the per-block any-ray test (a thread tests for
-// its own ray), the scalar-prefetched plan driving the DMA index maps, the
+// What is not carried over: the per-block any-ray test (each ray tests
+// for itself), the scalar-prefetched plan driving the DMA index maps, the
 // visit-sorted [n_blocks, c_pad, 128] bound tiles (visit_sorted_bounds),
 // the group-of-8 flag bitmasks computed a group ahead and the
 // double-buffered chunk DMA.  The scene is read from global memory (L2-
-// resident), as trace.cuh's WalkScene reads it.
+// resident), as trace.cuh's WalkChunks reads it.
+//
+// Design: DR_GROUP consecutive threads hold one ray and walk its block's
+// plan row through trace.cuh's group_walk (a prefilter of DR_GROUP plan
+// positions at once against the best t at the window's start, an exact
+// recheck of each candidate, each admitted chunk swept by the whole group
+// and its (t, slot) minimum taken by warp reductions), so that a warp no
+// longer sweeps every chunk any of 32 incoherent secondary rays admits,
+// and a launch holds DR_GROUP times the warps; the group's first thread
+// writes t and idx.
 //
 // Bound: FP32 throughput, over the work this run's data needs: 25
 // operations a finite bound test, 18 a sphere test of an admitted chunk
 // and 8 more when its discriminant is not negative, counted per launch
 // into stats (rays, bound tests, chunks admitted, sphere tests, tests with
-// disc >= 0) when the wrapper passes a counter.  Known cost: incoherent
-// rays in a warp diverge over which chunks they admit.
+// disc >= 0) when the wrapper passes a counter, and the slot-test lanes
+// the groups issued into *issued (group lane use = tests / issued).  Known
+// cost: a group reads an admitted chunk's slots once per ray (from L1/L2),
+// where a warp of 32 rays shared one read.
 //
 // Built with -fmad=false (ops/kernels/_build.py), so it agrees with its
 // plain version bit for bit.
 #include <cuda_runtime.h>
+#include <climits>
 
 #include "trace.cuh"
 
-#define THREADS 128
+// The plan row of a ray's block: the chunk at each position; every chunk
+// sweeps all its slots.
+struct PlanPos {
+  const int* plan;
+  __device__ __forceinline__ int operator()(int p) const { return plan[p]; }
+};
+struct WholeChunk {
+  int chunk;
+  __device__ __forceinline__ int operator()(int) const { return chunk; }
+};
 
 template <bool WALK>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(DR_GROUP_THREADS)
 culled_closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d, int R,
                           const float4* __restrict__ sph,     // [n_chunks * chunk] cx cy cz r2
                           const float4* __restrict__ bounds,  // [n_chunks] bx by bz r2
                           const int* __restrict__ order,      // [n_blocks, n_chunks]
                           const int* __restrict__ n_visit,    // [n_blocks]
                           int n_chunks, int chunk, int br, float* __restrict__ t_out,
-                          int* __restrict__ idx_out, unsigned long long* __restrict__ stats) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  unsigned long long bound_tests = 0, admitted = 0, tests = 0, near = 0;
+                          int* __restrict__ idx_out, unsigned long long* __restrict__ stats,
+                          unsigned long long* __restrict__ issued) {
+  const int i = (blockIdx.x * DR_GROUP_THREADS + threadIdx.x) / DR_GROUP;
+  const bool first = (threadIdx.x & (DR_GROUP - 1)) == 0;
+  GroupCounts n{};
   if (i < R) {
     const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
     const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
     const float a = dx * dx + dy * dy + dz * dz;
-    const float inv_a = 1.0f / a;
     const int b = i / br;
-    const int* plan = order + (size_t)b * n_chunks;
     const int nv = WALK ? n_visit[b] : n_chunks;
-    float best = DR_BIG;
-    int bi = 0;
-    for (int p = 0; p < nv; ++p) {
-      const int c = plan[p];
-      const float4 bd = bounds[c];
-      if (!isinf(bd.w)) ++bound_tests;
-      if (!chunk_admits(bd, ox, oy, oz, dx, dy, dz, a, inv_a, best)) continue;
-      ++admitted;
-      tests += (unsigned long long)chunk;
-      sweep_range<true>(sph, c * chunk, (c + 1) * chunk, ox, oy, oz, dx, dy, dz, a, inv_a,
-                        best, bi, &near);
+    int bi;
+    const float t = group_walk<DR_GROUP>(sph, bounds, nv, PlanPos{order + (size_t)b * n_chunks},
+                                         WholeChunk{chunk}, chunk, ox, oy, oz, dx, dy, dz, a,
+                                         1.0f / a, &bi, n);
+    if (first) {
+      t_out[i] = t;
+      idx_out[i] = bi;
     }
-    t_out[i] = best;
-    idx_out[i] = bi;
   }
   if (stats != nullptr) {
-    add_count(i < R ? 1ull : 0ull, stats + 0);
-    add_count(bound_tests, stats + 1);
-    add_count(admitted, stats + 2);
-    add_count(tests, stats + 3);
-    add_count(near, stats + 4);
+    add_count(i < R && first ? 1ull : 0ull, stats + 0);
+    add_count(n.bound_tests, stats + 1);
+    add_count(n.admitted, stats + 2);
+    add_count(n.tests, stats + 3);
+    add_count(n.near_tests, stats + 4);
   }
+  if (issued != nullptr) add_count(n.issued, issued);
 }
 
 extern "C" int culled_closest_hit_launch(const float* o, const float* d, int R,
@@ -101,17 +117,26 @@ extern "C" int culled_closest_hit_launch(const float* o, const float* d, int R,
                                          const int* order, const int* n_visit, int n_chunks,
                                          int chunk, int br, int walk, float* t_out,
                                          int* idx_out, unsigned long long* stats,
-                                         void* stream) {
-  if (R < 1 || n_chunks < 1 || chunk < 1 || br < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (R + THREADS - 1) / THREADS;
+                                         unsigned long long* issued, void* stream) {
+  if (R < 1 || n_chunks < 1 || chunk < 1 || br < 1 ||
+      R > (INT_MAX - DR_GROUP_THREADS) / DR_GROUP) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = (R * DR_GROUP + DR_GROUP_THREADS - 1) / DR_GROUP_THREADS;
   const float4* s = reinterpret_cast<const float4*>(sph);
   const float4* bd = reinterpret_cast<const float4*>(bounds);
   if (walk) {
-    culled_closest_hit_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        o, d, R, s, bd, order, n_visit, n_chunks, chunk, br, t_out, idx_out, stats);
+    culled_closest_hit_kernel<true><<<blocks, DR_GROUP_THREADS, 0, (cudaStream_t)stream>>>(
+        o, d, R, s, bd, order, n_visit, n_chunks, chunk, br, t_out, idx_out, stats, issued);
   } else {
-    culled_closest_hit_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        o, d, R, s, bd, order, n_visit, n_chunks, chunk, br, t_out, idx_out, stats);
+    culled_closest_hit_kernel<false><<<blocks, DR_GROUP_THREADS, 0, (cudaStream_t)stream>>>(
+        o, d, R, s, bd, order, n_visit, n_chunks, chunk, br, t_out, idx_out, stats, issued);
   }
   return (int)cudaGetLastError();
+}
+
+// The launch shape: lanes (threads) per ray, threads per block.
+extern "C" void culled_closest_hit_shape(int* shape) {
+  shape[0] = DR_GROUP;
+  shape[1] = DR_GROUP_THREADS;
 }

@@ -12,8 +12,8 @@
 //   K14 distributed_raytracer_tpu/ops/pallas/culled_bounce_kernel.py::
 //     _culled_bounce_kernel (:136; pallas_call :355 in
 //     _culled_fused_bounce_impl :305): the culled scene, walked chunk by
-//     chunk (trace.cuh's WalkScene) with a conservative per-ray bound test
-//     against the ray's best t so far.
+//     chunk (trace.cuh's group_walk) with a conservative per-ray bound
+//     test against the ray's best t so far.
 //
 // What they compute is JAX's BounceOut for each lane: the next origin and
 // direction, the bounce's attenuation, the terminal color (sky on a miss,
@@ -36,25 +36,37 @@
 // argmin over the culled scene, ties included: K10 on that scene returns
 // the same lanes bit for bit.
 //
-// Design: one thread per lane, the bounce loop's pieces of trace.cuh and
-// bounce.cuh (sweep through the accessor, shade<DRAWN> with the draws made
-// first).  Each launch also counts, when given a counter array, the lanes,
-// the chunks swept (K10: one per lane), the sphere tests and the tests
-// whose discriminant is not negative.
+// Design: K10 runs one thread per lane, the bounce loop's pieces of
+// trace.cuh and bounce.cuh (sweep through the accessor, shade<DRAWN> with
+// the draws made first).  K14 runs DR_GROUP consecutive threads per lane
+// (trace.cuh group_walk: a prefilter of DR_GROUP chunk positions at once,
+// each admitted chunk swept by the whole group, its (t, slot) minimum
+// taken by warp reductions), then the group's first thread draws, shades
+// and writes the lane: one thread per lane left a warp sweeping every
+// chunk any of its 32 incoherent rays admitted, and a pool of 16,384
+// lanes filled about four warps of each SM, so the sweep's latency was
+// exposed; the group walk sweeps only the lane's own chunks and launches
+// DR_GROUP times the warps.  Each launch also counts, when given a counter
+// array, the lanes, the chunks swept (K10: one per lane), the sphere tests
+// and the tests whose discriminant is not negative; K14 also the slot-
+// test lanes its groups issued (group lane use = tests / issued).
 //
 // Bound: FP32 throughput in the sweep, as K5 (18 operations a live-sphere
 // test, 8 more when the discriminant is not negative; for K14 also 25 a
 // finite chunk bound test), counted by chip_smoke.py from the counters.
 // Bytes are the pool's ray state read and written once (about 130 B a
-// lane) and the scene.  Known costs: at the engine's pool of 16,384 lanes
-// a launch fills about four warps of each SM, so the sweep's latency is
-// exposed, and the engine's host loop (refill, drain, one sync per block)
-// sets the pace more than the kernel does.
+// lane) and the scene.  Known costs: K10 at the engine's pool of 16,384
+// lanes fills about four warps of each SM, so its sweep's latency is
+// exposed; K14's groups read an admitted chunk's slots once per ray (from
+// L1/L2) where a warp of 32 rays shared one read; and the engine's host
+// loop (refill, drain, one sync per block) sets the pace more than either
+// kernel does.
 //
 // Built with -fmad=false (ops/kernels/_build.py), so it agrees with its
 // plain versions, ops/kernels/bounce_kernel.py::fused_bounce_plain and
 // ops/kernels/culled_bounce_kernel.py::culled_fused_bounce_plain.
 #include <cuda_runtime.h>
+#include <climits>
 #include <cstdint>
 
 #include "trace.cuh"
@@ -104,19 +116,12 @@ struct DenseScene {
   }
 };
 
-// One bounce of lane i through the scene accessor sc.
+// The shading tail of lane i's bounce, after its sweep gave (t, bi):
+// the draws (made, or handed in), shade<true> through the accessor sc
+// (sphere(j), attr(row, j)) for an active lane, and the nine outputs.
 template <class Scene>
-__device__ __forceinline__ void bounce_lane(Scene& sc, const Lanes& L, int i) {
-  float o[3], d[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    o[k] = L.o[3 * i + k];
-    d[k] = L.d[3 * i + k];
-  }
-  const float a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-  const float inv_a = 1.0f / a;
-  int bi;
-  const float t = sc.sweep(o[0], o[1], o[2], d[0], d[1], d[2], a, inv_a, &bi);
+__device__ __forceinline__ void finish_lane(const Scene& sc, const Lanes& L, int i, float o[3],
+                                            float d[3], float a, float t, int bi) {
   const uint32_t rid = (uint32_t)L.rid[i];
   float rec[4];
   if (L.draws != nullptr) {
@@ -148,6 +153,27 @@ __device__ __forceinline__ void bounce_lane(Scene& sc, const Lanes& L, int i) {
   L.finished[i] = fin ? 1 : 0;
   L.idx[i] = bi;  // 0 on a miss
   L.hit[i] = t < DR_BIG * 0.5f ? 1 : 0;
+}
+
+// Lane i's ray: o, d and a = |d|^2.
+__device__ __forceinline__ float load_lane(const Lanes& L, int i, float o[3], float d[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o[k] = L.o[3 * i + k];
+    d[k] = L.d[3 * i + k];
+  }
+  return d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+}
+
+// One bounce of lane i through the scene accessor sc (K10).
+template <class Scene>
+__device__ __forceinline__ void bounce_lane(Scene& sc, const Lanes& L, int i) {
+  float o[3], d[3];
+  const float a = load_lane(L, i, o, d);
+  const float inv_a = 1.0f / a;
+  int bi;
+  const float t = sc.sweep(o[0], o[1], o[2], d[0], d[1], d[2], a, inv_a, &bi);
+  finish_lane(sc, L, i, o, d, a, t, bi);
 }
 
 // Adds the launch's counts to stats [4] (lanes, chunks swept, sphere
@@ -185,18 +211,50 @@ fused_bounce_kernel(const float4* __restrict__ sph,    // [n]: cx, cy, cz, r2
   add_stats(sc, i < L.R, stats);
 }
 
-// K14: the walk over the culled scene's chunks.
-__global__ void __launch_bounds__(THREADS)
+// K14's chunk positions: the scene's own order, chunk c sweeping its
+// first chunk_len[c] slots.
+struct ScenePos {
+  __device__ __forceinline__ int operator()(int p) const { return p; }
+};
+struct ChunkLen {
+  const int* len;
+  __device__ __forceinline__ int operator()(int c) const { return len[c]; }
+};
+
+// K14: DR_GROUP consecutive threads walk lane i = thread / DR_GROUP's ray
+// over the culled scene's chunks (group_walk), then its first thread
+// shades and writes it.  Counts into stats [4] (lanes, chunks admitted,
+// slot tests, tests with disc >= 0) and into *issued the slot-test lanes
+// issued, when given.
+__global__ void __launch_bounds__(DR_GROUP_THREADS)
 culled_fused_bounce_kernel(const float4* __restrict__ sph,     // [n_slots]: cx, cy, cz, r2
                            const float* __restrict__ attrs,    // [11, n_slots]
                            const float4* __restrict__ bounds,  // [>= n_chunks]: bx, by, bz, r2
                            const int* __restrict__ chunk_len,  // [n_chunks]
                            int n_slots, int chunk, int n_chunks, Lanes L,
-                           unsigned long long* __restrict__ stats) {
-  WalkScene sc{sph, attrs + 3 * n_slots, bounds, chunk_len, n_slots, chunk, n_chunks, 0, 0, 0};
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < L.R) bounce_lane(sc, L, i);
-  add_stats(sc, i < L.R, stats);
+                           unsigned long long* __restrict__ stats,
+                           unsigned long long* __restrict__ issued) {
+  const int i = (blockIdx.x * DR_GROUP_THREADS + threadIdx.x) / DR_GROUP;
+  const bool first = (threadIdx.x & (DR_GROUP - 1)) == 0;
+  GroupCounts n{};
+  if (i < L.R) {
+    float o[3], d[3];
+    const float a = load_lane(L, i, o, d);
+    int bi;
+    const float t = group_walk<DR_GROUP>(sph, bounds, n_chunks, ScenePos{}, ChunkLen{chunk_len},
+                                         chunk, o[0], o[1], o[2], d[0], d[1], d[2], a,
+                                         1.0f / a, &bi, n);
+    // the winner's accessor for shading (its sweep is not called)
+    const DenseScene sc{sph, attrs + 3 * n_slots, n_slots, n_slots, 0, 0, 0};
+    if (first) finish_lane(sc, L, i, o, d, a, t, bi);
+  }
+  if (stats != nullptr) {
+    add_count(i < L.R && first ? 1ull : 0ull, stats + 0);
+    add_count(n.admitted, stats + 1);
+    add_count(n.tests, stats + 2);
+    add_count(n.near_tests, stats + 3);
+  }
+  if (issued != nullptr) add_count(n.issued, issued);
 }
 
 static Lanes lanes(const float* o, const float* d, const uint8_t* act, const int* rid,
@@ -234,15 +292,23 @@ extern "C" int culled_fused_bounce_launch(const float* sph, const float* attrs,
                                           const float* draws, int seed, int R, float* new_o,
                                           float* new_d, float* atten, float* color,
                                           int* finished, int* idx, uint8_t* hit, float* ruv,
-                                          float* u, unsigned long long* stats, void* stream) {
-  if (n_chunks < 1 || chunk < 1 || n_slots != chunk * n_chunks || R < 1) {
+                                          float* u, unsigned long long* stats,
+                                          unsigned long long* issued, void* stream) {
+  if (n_chunks < 1 || chunk < 1 || n_slots != chunk * n_chunks || R < 1 ||
+      R > (INT_MAX - DR_GROUP_THREADS) / DR_GROUP) {
     return (int)cudaErrorInvalidValue;
   }
   const Lanes L = lanes(o, d, act, rid, draws, seed, R, new_o, new_d, atten, color, finished,
                         idx, hit, ruv, u);
-  const int blocks = (R + THREADS - 1) / THREADS;
-  culled_fused_bounce_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  const int blocks = (R * DR_GROUP + DR_GROUP_THREADS - 1) / DR_GROUP_THREADS;
+  culled_fused_bounce_kernel<<<blocks, DR_GROUP_THREADS, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(sph), attrs, reinterpret_cast<const float4*>(bounds),
-      chunk_len, n_slots, chunk, n_chunks, L, stats);
+      chunk_len, n_slots, chunk, n_chunks, L, stats, issued);
   return (int)cudaGetLastError();
+}
+
+// K14's launch shape: lanes (threads) per ray, threads per block.
+extern "C" void culled_fused_bounce_shape(int* shape) {
+  shape[0] = DR_GROUP;
+  shape[1] = DR_GROUP_THREADS;
 }

@@ -12,13 +12,16 @@
 //
 //   ResidentScene (K5, K6): the whole scene staged in shared memory, every
 //     sphere swept;
-//   WalkChunks (K9; K14 as WalkScene): the scene in global memory
-//     (L2-resident) as visit-ordered chunks of slots, a chunk swept only
-//     when the ray can still hit its bounding sphere closer than its best
-//     t so far.
+//   WalkChunks (K9): the scene in global memory (L2-resident) as
+//     visit-ordered chunks of slots, a chunk swept only when the ray can
+//     still hit its bounding sphere closer than its best t so far.
 //
 // Both give sphere(j) (cx, cy, cz, r2), attr(ATT_*, j) and sweep(...),
 // which returns the closest t (DR_BIG on a miss) and its index.
+//
+// group_walk, the same walk with a group of lanes holding one ray, is the
+// closest hit of the culled fused bounce (K14, csrc/fused_bounce.cu) and
+// the culled closest hit (K12/K13, csrc/culled_intersect.cu).
 #pragma once
 #include <cstdint>
 
@@ -186,7 +189,98 @@ struct WalkChunks {
     return best;
   }
 };
-using WalkScene = WalkChunks<false>;
+
+// The group walk's lanes per ray and threads per block: one library has
+// one shape (a probe builds others with -D).
+#ifndef DR_GROUP
+#define DR_GROUP 32
+#endif
+#ifndef DR_GROUP_THREADS
+#define DR_GROUP_THREADS 128
+#endif
+static_assert(DR_GROUP >= 1 && DR_GROUP <= 32 && (DR_GROUP & (DR_GROUP - 1)) == 0,
+              "DR_GROUP must be a power of two up to 32");
+static_assert(DR_GROUP_THREADS % 32 == 0, "DR_GROUP_THREADS must be whole warps");
+
+// Per-lane counts of a group walk.  Each lane counts the finite bound
+// tests of its own prefilter positions and the disc >= 0 tests of its own
+// slots; the group's first lane counts each admitted chunk, its slot tests
+// and the slot-test lanes the group issued for it (G x its rounds), so
+// the sums over the lanes are what the walk of one thread per ray counts,
+// and group lane use = tests / issued.
+struct GroupCounts {
+  unsigned long long bound_tests, admitted, tests, near_tests, issued;
+};
+
+// The walk of one ray held by a group of G consecutive lanes of a warp
+// (every lane passes the ray's o, d, a and inv_a) over the chunk
+// positions 0 .. n_pos-1, chunk at(p) at position p (c * chunk is its
+// first slot, len_of(c) the slots it sweeps).  Returns what WalkChunks'
+// sweep of one thread per ray returns, on every lane: the closest t
+// (DR_BIG on a miss), the winner's slot in *idx (0 on a miss).
+//
+// Prefilter: each lane tests one of the next G positions with
+// chunk_admits against the best t at the window's start.  The test is
+// monotone in best (nearb < best), and best only falls, so a position it
+// rejects is one the walk of one thread would reject too.  Recheck: the
+// candidates (a ballot) are taken in ascending position, and once best has
+// fallen since the prefilter each is tested again with the same call, the
+// same operands and the current best, so the chunks admitted are the
+// sequential walk's exactly.  Sweep: lane q tests slots j0 + q, j0 + q +
+// G, ... with sweep_range's arithmetic into its own (t, slot); the
+// group's minimum of (t bits, then slot among the lanes at that t; t > 0,
+// so its bits order as unsigned ints) is the first slot of the chunk's
+// least t, what a strict-< sweep finds, merged into best with a strict <.
+template <int G, class At, class Len>
+__device__ __forceinline__ float group_walk(const float4* __restrict__ sph,
+                                            const float4* __restrict__ bounds, int n_pos,
+                                            At at, Len len_of, int chunk, float ox, float oy,
+                                            float oz, float dx, float dy, float dz, float a,
+                                            float inv_a, int* idx, GroupCounts& n) {
+  const int lane = threadIdx.x & 31;
+  const int q = lane & (G - 1);
+  const int base = lane - q;
+  const unsigned gmask = G == 32 ? 0xFFFFFFFFu : ((1u << (G & 31)) - 1u) << base;
+  float best = DR_BIG;
+  int bi = 0;
+  for (int p0 = 0; p0 < n_pos; p0 += G) {
+    int c = 0;
+    bool cand = false;
+    if (p0 + q < n_pos) {
+      c = at(p0 + q);
+      const float4 b = bounds[c];
+      if (!isinf(b.w)) ++n.bound_tests;
+      cand = chunk_admits(b, ox, oy, oz, dx, dy, dz, a, inv_a, best);
+    }
+    const float stale = best;
+    for (unsigned m = (__ballot_sync(gmask, cand) & gmask) >> base; m != 0u; m &= m - 1u) {
+      const int ck = __shfl_sync(gmask, c, __ffs(m) - 1, G);
+      if (best < stale && !chunk_admits(bounds[ck], ox, oy, oz, dx, dy, dz, a, inv_a, best)) {
+        continue;
+      }
+      const int j0 = ck * chunk;
+      const int len = len_of(ck);
+      if (q == 0) {
+        ++n.admitted;
+        n.tests += (unsigned long long)len;
+        n.issued += (unsigned long long)(G * ((len + G - 1) / G));
+      }
+      float tb = DR_BIG;
+      int jb = 0;
+      sweep_range<true>(sph, j0 + q, j0 + len, ox, oy, oz, dx, dy, dz, a, inv_a, tb, jb,
+                        &n.near_tests, 0, G);
+      const unsigned tmin = __reduce_min_sync(gmask, __float_as_uint(tb));
+      const unsigned jmin =
+          __reduce_min_sync(gmask, __float_as_uint(tb) == tmin ? (unsigned)jb : ~0u);
+      if (__uint_as_float(tmin) < best) {
+        best = __uint_as_float(tmin);
+        bi = (int)jmin;
+      }
+    }
+  }
+  *idx = bi;
+  return best;
+}
 
 // One bounce of the ray (o, d) at depth `depth` with throughput atten
 // (draws keyed by rid and bounce_seed + depth * 65537): sweep + shade, for

@@ -7,10 +7,11 @@ bounce of every lane of the wavefront pool against a CulledScene
 sweeps a chunk only when it can still hit the chunk's bounding sphere
 closer than its best t so far, then shades with the (ray id, seed)-keyed
 hash draws, d = 0..4, bit for bit JAX's keys.  On CUDA tensors
-`culled_fused_bounce` launches csrc/fused_bounce.cu's walk instantiation;
-on CPU tensors it runs `culled_fused_bounce_plain`: the dense plain
-bounce over the culled scene's slots, which also counts what the walk
-admits (ops/kernels/mega_walk_kernel.py::walk_sweep).
+`culled_fused_bounce` launches csrc/fused_bounce.cu's K14, a group of
+lanes per pool lane walking the chunks (csrc/trace.cuh group_walk); on
+CPU tensors it runs `culled_fused_bounce_plain`: the dense plain bounce
+over the culled scene's slots, which also counts what the walk admits
+(ops/kernels/mega_walk_kernel.py::walk_sweep).
 
 The pack is the walk's (`WalkPack`: f32 sweep columns, f32 winner
 attributes, chunk bounds, chunk lengths) in the culled scene's own chunk
@@ -26,7 +27,7 @@ counterpart.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +41,7 @@ from distributed_raytracer_tpu_torch.ops.kernels.bounce_kernel import (
     empty_out,
     lane_args,
 )
-from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import CulledScene
+from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import CulledScene, check_counter
 from distributed_raytracer_tpu_torch.ops.kernels.mega_walk_kernel import (
     WalkPack,
     check_pack,
@@ -80,25 +81,38 @@ def culled_fused_bounce_plain(ray_o, ray_d, active, ray_id, pack: CulledPack, se
 def _lib():
     lib = _build.load("fused_bounce")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.culled_fused_bounce_launch.argtypes = [p, p, p, p, i, i, i] + LANE_ARGTYPES
+    # the lane arguments, then the issued-lanes counter before the stream
+    lib.culled_fused_bounce_launch.argtypes = ([p, p, p, p, i, i, i] + LANE_ARGTYPES[:-1]
+                                               + [p, p])
     lib.culled_fused_bounce_launch.restype = i
     return lib
 
 
+def group_shape() -> Tuple[int, int]:
+    """(lanes per pool lane, threads per block) of the built K14."""
+    shape = (ctypes.c_int * 2)()
+    _lib().culled_fused_bounce_shape(shape)
+    return shape[0], shape[1]
+
+
 def culled_fused_bounce_cuda(ray_o, ray_d, active, ray_id, pack: CulledPack, seed: int, *,
                              draws: Optional[torch.Tensor] = None,
-                             stats: Optional[torch.Tensor] = None) -> BounceOut:
-    """Launch K14 (csrc/fused_bounce.cu, the walk instantiation) on the
-    current stream (no sync).  Same arguments and results as
-    culled_fused_bounce_plain; draws, when given, is one [5, R] tensor."""
+                             stats: Optional[torch.Tensor] = None,
+                             issued: Optional[torch.Tensor] = None) -> BounceOut:
+    """Launch K14 (csrc/fused_bounce.cu) on the current stream (no
+    sync).  Same arguments and results as culled_fused_bounce_plain;
+    draws, when given, is one [5, R] tensor; issued, int64 [1], gains the
+    slot-test lanes the groups issued."""
     r = check_lanes(ray_o, ray_d, active, ray_id, draws, stats)
+    check_counter(issued, "issued", 1, ray_o.device)
     n, chunk, n_chunks = check_pack(pack.scene_pack, pack.attrs, pack.bounds, pack.chunk_len,
                                     ray_o.device)
     out = empty_out(r, ray_o.device)
+    *args, stream = lane_args(ray_o, ray_d, active, ray_id, draws, seed, r, out, stats)
     err = _lib().culled_fused_bounce_launch(
         pack.scene_pack.data_ptr(), pack.attrs.data_ptr(), pack.bounds.data_ptr(),
-        pack.chunk_len.data_ptr(), n, chunk, n_chunks,
-        *lane_args(ray_o, ray_d, active, ray_id, draws, seed, r, out, stats))
+        pack.chunk_len.data_ptr(), n, chunk, n_chunks, *args,
+        None if issued is None else issued.data_ptr(), stream)
     _build.check(err, "culled_fused_bounce_launch")
     culled_fused_bounce_cuda.launches += 1
     return out

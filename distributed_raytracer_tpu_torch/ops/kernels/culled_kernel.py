@@ -18,7 +18,13 @@ _block_visit_plan in tensor code), then on CUDA tensors the hand-written
 csrc/culled_intersect.cu (one body, two instantiations), on CPU tensors
 `culled_closest_hit_plain`.  Its gradient is K11's winner-only backward
 (intersect_kernel.py).  visit_sorted_bounds, the TPU's visit-ordered
-bound tiles, has no counterpart: a thread reads bounds[order[b, p]].
+bound tiles, has no counterpart: a ray reads bounds[order[b, p]].
+
+Both culled kernels of the port (K12/K13 here, K14 in
+culled_bounce_kernel.py) walk a ray's chunks with a group of lanes
+(csrc/trace.cuh group_walk).  `group_walk_plain` is a plain model of that
+schedule for the tests, which hold it to the walk of one thread per ray;
+nothing on the card path calls it.
 """
 
 from __future__ import annotations
@@ -46,6 +52,10 @@ LANE = 128
 DEFAULT_BR = 512  # rays per plan block (culled_kernel.py:46)
 # the counters of a culled launch, in the order of its `stats` tensor
 CULLED_STATS = ("rays", "bound_tests", "admitted", "tests", "near")
+# group_walk_plain's counts: CULLED_STATS' walk counters, the slot-test
+# lanes the groups issue (G x the rounds of each admitted chunk), and the
+# prefilter's candidates that the exact recheck rejected
+GROUP_COUNTS = ("bound_tests", "admitted", "tests", "near", "issued", "rechecked_out")
 GROUP = 8  # bound rows are padded to whole groups of this many (the TPU's flag tests)
 
 
@@ -181,16 +191,116 @@ def culled_closest_hit_plain(ray_o: torch.Tensor, ray_d: torch.Tensor, sph: torc
     return torch.cat(ts), torch.cat(idxs)
 
 
+def chunk_admits_plain(bounds, ox, oy, oz, dx, dy, dz, a, inv_a, best):
+    """[R, C] bool: the walk's chunk test (csrc/trace.cuh chunk_admits) of
+    rays [R] against bounds [C, 4] (the same chunks for every ray) or
+    [R, C, 4] (each ray's own), with best [R, C] each ray's best t before
+    the chunk."""
+    bx, by, bz, br2 = (bounds[..., k] for k in range(4))
+    obx = bx - ox[:, None]
+    oby = by - oy[:, None]
+    obz = bz - oz[:, None]
+    hb = dx[:, None] * obx + dy[:, None] * oby + dz[:, None] * obz
+    cb = obx * obx + oby * oby + obz * obz - br2
+    discb = hb * hb - a[:, None] * cb
+    ok = discb >= 0.0
+    sq = torch.sqrt(torch.where(ok, discb, 0.0))
+    inv = inv_a[:, None]
+    nearb = (hb - sq) * inv
+    farb = (hb + sq) * inv
+    admit = ok & (farb > T_MIN) & (nearb < best)
+    return torch.where(torch.isinf(br2), br2 > 0.0, admit)
+
+
+def group_walk_plain(ray_o, ray_d, sph, bounds, plan, n_pos, lens, chunk: int, group: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """A plain model of the group walk's schedule (csrc/trace.cuh
+    group_walk), `group` lanes per ray: rays [R, 3]; slots sph [n_slots, 4]
+    (cx, cy, cz, r2), chunk c's at c * chunk; bounds [>= C, 4]; plan
+    [R, P] the chunk at each position of a ray's walk and n_pos [R] the
+    positions it walks; lens [C] the slots each chunk sweeps.
+
+    Per window of `group` positions the prefilter tests each against the
+    ray's best t at the window's start; the candidates are taken in
+    ascending position and, once best has fallen, tested again against the
+    current best; an admitted chunk's slots are dealt to the lanes (lane q:
+    slots q, q + group, ...), each lane keeps its first least t, and the
+    group's least t, then least slot at that t, merges into best with a
+    strict <.  Returns (t [R], idx [R] int32, counts by GROUP_COUNTS); t
+    and idx are the walk's of one thread per ray, bit for bit, and so are
+    the counts it also gives (group = 1 is that walk)."""
+    r = ray_o.shape[0]
+    ox, oy, oz = ray_o.unbind(-1)
+    dx, dy, dz = ray_d.unbind(-1)
+    a = dx * dx + dy * dy + dz * dz
+    inv_a = 1.0 / a
+    t_all, ok_all = sweep_t(ox, oy, oz, dx, dy, dz, a, inv_a, sph.t())  # each slot's test
+    plan, lens = plan.long(), lens.long()
+    slot = torch.arange(chunk, device=ray_o.device)
+    rounds = -(-chunk // group)
+    pad = rounds * group - chunk
+    best = torch.full((r,), BIG, dtype=ray_o.dtype, device=ray_o.device)
+    bi = torch.zeros(r, dtype=torch.int64, device=ray_o.device)
+    counts = dict.fromkeys(GROUP_COUNTS, 0)
+    for p0 in range(0, plan.shape[1], group):
+        c = plan[:, p0:p0 + group]
+        live = torch.arange(p0, p0 + c.shape[1], device=c.device)[None, :] < n_pos[:, None]
+        b = bounds[c]
+        counts["bound_tests"] += int((live & torch.isfinite(b[..., 3])).sum())
+        cand = live & chunk_admits_plain(b, ox, oy, oz, dx, dy, dz, a, inv_a, best[:, None])
+        stale = best
+        for k in range(c.shape[1]):
+            ck = c[:, k]
+            recheck = cand[:, k] & (best < stale)
+            exact = chunk_admits_plain(bounds[ck][:, None], ox, oy, oz, dx, dy, dz, a, inv_a,
+                                       best[:, None])[:, 0]
+            adm = cand[:, k] & (~recheck | exact)
+            counts["rechecked_out"] += int((recheck & ~exact).sum())
+            ln = lens[ck]
+            j = ck[:, None] * chunk + slot
+            swept = slot[None, :] < ln[:, None]
+            tj = torch.where(swept, t_all.gather(1, j), BIG)
+            lane_t = torch.nn.functional.pad(tj, (0, pad), value=BIG).view(r, rounds, group)
+            lane_j = torch.nn.functional.pad(j, (0, pad)).view(r, rounds, group)
+            lt, at = torch.min(lane_t, dim=1)  # each lane's first least t
+            lj = lane_j.gather(1, at[:, None])[:, 0]
+            tmin = lt.min(dim=1).values
+            jmin = torch.where(lt == tmin[:, None], lj, torch.iinfo(torch.int64).max).amin(1)
+            win = adm & (tmin < best)
+            best = torch.where(win, tmin, best)
+            bi = torch.where(win, jmin, bi)
+            counts["admitted"] += int(adm.sum())
+            counts["tests"] += int(ln[adm].sum())
+            counts["near"] += int((ok_all.gather(1, j) & swept)[adm].sum())
+            counts["issued"] += int((group * -(-ln // group))[adm].sum())
+    return best, bi.to(torch.int32), counts
+
+
 def _lib():
     lib = _build.load("culled_intersect")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.culled_closest_hit_launch.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p, p, p, p]
+    lib.culled_closest_hit_launch.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p, p, p, p, p]
     lib.culled_closest_hit_launch.restype = i
     return lib
 
 
+def group_shape() -> Tuple[int, int]:
+    """(lanes per ray, threads per block) of the built K12/K13."""
+    shape = (ctypes.c_int * 2)()
+    _lib().culled_closest_hit_shape(shape)
+    return shape[0], shape[1]
+
+
+def check_counter(x: Optional[torch.Tensor], name: str, n: int, dev) -> None:
+    """A counter tensor, when given, is an int64 tensor of at least n
+    entries on dev."""
+    if x is not None and (x.device != dev or x.dtype != torch.int64 or x.numel() < n):
+        raise ValueError(f"{name} must be an int64 [{n}] tensor on the rays' device")
+
+
 def _culled_launch(walk: bool, ray_o, ray_d, sph, bounds, order, n_visit, chunk: int, br: int,
-                   stats: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+                   stats: Optional[torch.Tensor], issued: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     r = check_rays(ray_o, ray_d, sph)
     n_blocks, n_chunks = order.shape
     dev = ray_o.device
@@ -204,39 +314,42 @@ def _culled_launch(walk: bool, ray_o, ray_d, sph, bounds, order, n_visit, chunk:
     if sph.shape[0] != n_chunks * chunk or n_blocks * br < r or br < 1:
         raise ValueError(f"bad culled operands: {sph.shape[0]} slots, {n_chunks} chunks of "
                          f"{chunk}, {n_blocks} blocks of {br} for {r} rays")
-    if stats is not None and (stats.device != dev or stats.dtype != torch.int64
-                              or stats.numel() < len(CULLED_STATS)):
-        raise ValueError(f"stats must be an int64 [{len(CULLED_STATS)}] tensor on the rays' "
-                         f"device")
+    check_counter(stats, "stats", len(CULLED_STATS), dev)
+    check_counter(issued, "issued", 1, dev)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     idx = torch.empty(r, dtype=torch.int32, device=dev)
     err = _lib().culled_closest_hit_launch(
         ray_o.data_ptr(), ray_d.data_ptr(), r, sph.data_ptr(), bounds.data_ptr(),
         order.data_ptr(), n_visit.data_ptr(), n_chunks, chunk, br, int(walk), t.data_ptr(),
         idx.data_ptr(), None if stats is None else stats.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if issued is None else issued.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "culled_closest_hit_launch")
     return t, idx
 
 
 def culled_closest_hit_cuda(ray_o, ray_d, sph, bounds, order, n_visit, chunk: int, br: int, *,
-                            stats: Optional[torch.Tensor] = None
+                            stats: Optional[torch.Tensor] = None,
+                            issued: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K12 (csrc/culled_intersect.cu, WALK = false: every position
     of the plan) on the current stream (no sync).  bounds [n_chunks, 4]
     (bx, by, bz, inflated r2), order and n_visit from block_visit_plan;
-    stats, int64 [5], gains the launch's CULLED_STATS."""
-    out = _culled_launch(False, ray_o, ray_d, sph, bounds, order, n_visit, chunk, br, stats)
+    stats, int64 [5], gains the launch's CULLED_STATS, and issued, int64
+    [1], the slot-test lanes its groups issued."""
+    out = _culled_launch(False, ray_o, ray_d, sph, bounds, order, n_visit, chunk, br, stats,
+                         issued)
     culled_closest_hit_cuda.launches += 1
     return out
 
 
 def culled_closest_hit_walk_cuda(ray_o, ray_d, sph, bounds, order, n_visit, chunk: int,
-                                 br: int, *, stats: Optional[torch.Tensor] = None
+                                 br: int, *, stats: Optional[torch.Tensor] = None,
+                                 issued: Optional[torch.Tensor] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K13 (csrc/culled_intersect.cu, WALK = true: the first
     n_visit[b] positions of the plan); culled_closest_hit_cuda's operands."""
-    out = _culled_launch(True, ray_o, ray_d, sph, bounds, order, n_visit, chunk, br, stats)
+    out = _culled_launch(True, ray_o, ray_d, sph, bounds, order, n_visit, chunk, br, stats,
+                         issued)
     culled_closest_hit_walk_cuda.launches += 1
     return out
 

@@ -86,6 +86,16 @@ def sweep_lane_use(tests: int, warp_tests: int, warp: int = 32) -> float:
     return tests / (warp * warp_tests) if warp_tests else 0.0
 
 
+def group_lane_use(tests: int, issued: int) -> float:
+    """The share of the slot-test lanes that the group walk's groups
+    issue (csrc/trace.cuh group_walk: G lanes hold one ray and test an
+    admitted chunk's slots in rounds of G, so a chunk of len slots takes
+    G x ceil(len / G) lanes) that test a slot: the slot tests of admitted
+    chunks over those lanes.  Only a chunk's last round can leave lanes
+    idle."""
+    return tests / issued if issued else 0.0
+
+
 def static_lane_use(lengths: torch.Tensor, warp: int = 32) -> float:
     """The lane use of one thread per ray in static warps of `warp`
     consecutive rays (K5 and K6 before the persistent loop), each of which

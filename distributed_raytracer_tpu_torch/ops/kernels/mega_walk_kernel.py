@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from distributed_raytracer_tpu_torch.core.device import resolve_device
-from distributed_raytracer_tpu_torch.core.vecmath import BIG, T_MIN
+from distributed_raytracer_tpu_torch.core.vecmath import BIG
 from distributed_raytracer_tpu_torch.models.scene import ABSORB, Scene
 from distributed_raytracer_tpu_torch.ops.camera import CAM_ROW, Camera, camera_scalar_row
 from distributed_raytracer_tpu_torch.ops.kernels import _build
@@ -52,6 +52,7 @@ from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import (
     GROUP,
     CulledScene,
     build_culled_scene,
+    chunk_admits_plain,
 )
 from distributed_raytracer_tpu_torch.ops.kernels.hash import wrap_i32
 from distributed_raytracer_tpu_torch.ops.kernels.mega_kernel import (
@@ -156,26 +157,6 @@ def walk_pack_for(scene: Scene, camera: Camera, chunk: int = 256) -> WalkPack:
     the camera's visit order.  A CPU pack; `WalkPack.to` moves it."""
     culled = build_culled_scene(scene.to("cpu"), chunk=chunk)
     return build_walk_pack(culled, camera.center.detach().cpu().numpy())
-
-
-def chunk_admits_plain(bounds, ox, oy, oz, dx, dy, dz, a, inv_a, best):
-    """[R, n_chunks] bool: the walk's chunk test (csrc/trace.cuh
-    chunk_admits) of rays [R] against bounds [n_chunks, 4], with best
-    [R, n_chunks] each ray's best t before the chunk."""
-    bx, by, bz, br2 = (bounds[:, k][None, :] for k in range(4))
-    obx = bx - ox[:, None]
-    oby = by - oy[:, None]
-    obz = bz - oz[:, None]
-    hb = dx[:, None] * obx + dy[:, None] * oby + dz[:, None] * obz
-    cb = obx * obx + oby * oby + obz * obz - br2
-    discb = hb * hb - a[:, None] * cb
-    ok = discb >= 0.0
-    sq = torch.sqrt(torch.where(ok, discb, 0.0))
-    inv = inv_a[:, None]
-    nearb = (hb - sq) * inv
-    farb = (hb + sq) * inv
-    admit = ok & (farb > T_MIN) & (nearb < best)
-    return torch.where(torch.isinf(br2), br2 > 0.0, admit)
 
 
 def walk_sweep(cols, attrs, bounds, n_chunks: int, tally: torch.Tensor):

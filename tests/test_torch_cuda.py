@@ -20,6 +20,8 @@ from distributed_raytracer_tpu_torch.models import presets
 from distributed_raytracer_tpu_torch.ops.camera import Camera, camera_scalar_row
 from distributed_raytracer_tpu_torch.ops.kernels import bounce_kernel as bk
 from distributed_raytracer_tpu_torch.ops.kernels import culled_bounce_kernel as cb
+from distributed_raytracer_tpu_torch.ops.kernels import culled_kernel as ck
+from distributed_raytracer_tpu_torch.ops.kernels import intersect_kernel as ik
 from distributed_raytracer_tpu_torch.ops.kernels import mega_bwd_kernel as mbk
 from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
 from distributed_raytracer_tpu_torch.ops.kernels import mega_render_kernel as mrk
@@ -385,6 +387,98 @@ def test_culled_fused_bounce_matches_plain_on_card(card):
     _assert_same_bounce(got, want)
     _assert_same_bounce(got, dense)
     assert torch.equal(st_k, st_p)
+
+
+# --- the group walk (csrc/trace.cuh group_walk): K14 and K12/K13 run the
+# built G lanes per ray.  Held bit for bit to their plain versions on odd
+# lane counts (a partial last block and, at G < 32, a partial warp of
+# groups), and their counters, the issued slot-test lanes included, to
+# the schedule model group_walk_plain at the kernel's G ---
+
+
+def _group_scene():
+    from test_torch_culled_group import CHUNK, _rays, _scene
+
+    scene = _scene()
+    return build_culled_scene(scene, chunk=CHUNK), _rays(scene)
+
+
+@pytest.mark.parametrize("which", ["final128", "synthetic16"])
+def test_culled_fused_bounce_group_walk_on_card(card, which):
+    """K14 against its plain version (nine outputs and counters, with hash
+    draws and with handed-in draws) on 4,001 lanes of the final scene in
+    chunks of 128 and the 325 rays of the synthetic scene in chunks of 16
+    (ground chunk, twins, grazing rays), every third lane inactive; its
+    issued lanes are the model's at the kernel's G."""
+    if which == "final128":
+        culled = build_culled_scene(presets.rtiow_final_scene(pad_to=512), chunk=128)
+        lanes = _lanes(4001, 6, card)
+    else:
+        culled, (o, d) = _group_scene()
+        r = o.shape[0]
+        lanes = (o.to(card), d.to(card), (torch.arange(r) % 3 != 2).to(card),
+                 (torch.arange(r, dtype=torch.int32) * 7 + 13).to(card))
+    pack = cb.build_culled_pack(culled).to(card)
+    g, threads = cb.group_shape()
+    assert 1 <= g <= 32 and threads % 32 == 0
+    st_k, st_p = (torch.zeros(4, dtype=torch.int64, device=card) for _ in range(2))
+    issued = torch.zeros(1, dtype=torch.int64, device=card)
+    got = cb.culled_fused_bounce_cuda(*lanes, pack, 97531, stats=st_k, issued=issued)
+    want = cb.culled_fused_bounce_plain(*lanes, pack, 97531, stats=st_p)
+    r = lanes[0].shape[0]
+    _, _, n = ck.group_walk_plain(lanes[0], lanes[1], pack.scene_pack, pack.bounds,
+                                  torch.arange(pack.n_chunks, device=card).expand(r, -1),
+                                  torch.full((r,), pack.n_chunks, device=card), pack.chunk_len,
+                                  pack.chunk, g)
+    torch.cuda.synchronize()
+    _assert_same_bounce(got, want)
+    assert torch.equal(st_k, st_p)
+    assert int(issued) == n["issued"]
+    assert 0.0 < mk.group_lane_use(int(st_k[2]), int(issued)) <= 1.0
+    draws = torch.rand(5, r, generator=torch.Generator().manual_seed(2)).clamp(1e-7).to(card)
+    _assert_same_bounce(cb.culled_fused_bounce(*lanes, pack, 1, draws=draws),
+                        cb.culled_fused_bounce_plain(*lanes, pack, 1, draws=draws))
+
+
+@pytest.mark.parametrize("mode", ["grid", "walk"])
+@pytest.mark.parametrize("which", ["final128", "synthetic16"])
+def test_culled_closest_hit_group_walk_on_card(card, which, mode):
+    """K12 (grid) and K13 (walk) against their plain version, t and idx bit
+    for bit, on 3,001 random rays at the final scene in chunks of 128 and
+    the 325 rays of the synthetic scene in chunks of 16 (plan blocks of
+    128 rays, the last partial); their counters and issued lanes are the
+    model's at the kernel's G."""
+    if which == "final128":
+        culled = build_culled_scene(presets.rtiow_final_scene(pad_to=512), chunk=128)
+        o, d = _lanes(3001, 7, card)[:2]
+    else:
+        culled, (o, d) = _group_scene()
+        o, d = o.to(card), d.to(card)
+    csc = culled.scene.to(card)
+    sph = ik.sphere_pack(csc.centers, csc.radii)
+    bounds = ck.culled_bounds(culled, card)
+    r = o.shape[0]
+    br, nb = ck.plan_blocks(r, block_rays=ck.LANE)
+    order, n_visit = ck.block_visit_plan(o, d, torch.from_numpy(culled.bounds_c).to(card),
+                                         torch.from_numpy(culled.bounds_r2).to(card), nb, br)
+    launch = ck.culled_closest_hit_walk_cuda if mode == "walk" else ck.culled_closest_hit_cuda
+    stats = torch.zeros(len(ck.CULLED_STATS), dtype=torch.int64, device=card)
+    issued = torch.zeros(1, dtype=torch.int64, device=card)
+    before = launch.launches
+    t, idx = launch(o, d, sph, bounds, order, n_visit, culled.chunk, br, stats=stats,
+                    issued=issued)
+    assert launch.launches == before + 1
+    t_p, idx_p = ck.culled_closest_hit_plain(o, d, sph, order, culled.chunk, br)
+    block = torch.arange(r, device=card) // br
+    n_pos = n_visit.long()[block] if mode == "walk" else torch.full_like(block, order.shape[1])
+    lens = torch.full((order.shape[1],), culled.chunk, dtype=torch.int32, device=card)
+    t_m, idx_m, n = ck.group_walk_plain(o, d, sph, bounds, order.long()[block], n_pos, lens,
+                                        culled.chunk, ck.group_shape()[0])
+    torch.cuda.synchronize()
+    assert torch.equal(t, t_p) and torch.equal(idx, idx_p)
+    assert torch.equal(t_m, t_p) and torch.equal(idx_m, idx_p)
+    assert stats.tolist() == [r] + [n[k] for k in ck.CULLED_STATS[1:]]
+    assert int(issued) == n["issued"]
 
 
 def test_fused_engine_on_card(card):

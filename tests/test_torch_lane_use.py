@@ -4,14 +4,16 @@ static_lane_use is the share of lanes that one thread per ray in static
 warps of 32 consecutive rays keeps busy, reckoned from the rays' bounce
 counts; lane_use is the persistent kernels' own, from their bounce (or
 row) and warp-step counters; sweep_lane_use is the walk's (K9), from its
-per-lane slot tests and the slot tests its warps issued.  chip_smoke.py
-reports them at the main path.  These run on the CPU on synthetic counts
+per-lane slot tests and the slot tests its warps issued; group_lane_use
+is the group walk's (K14, K12/K13), from the slot tests and the slot-test
+lanes its groups issued.  chip_smoke.py reports them at the main path.  These run on the CPU on synthetic counts
 with known answers; no JAX."""
 
 import pytest
 import torch
 
 from distributed_raytracer_tpu_torch.ops.kernels.mega_kernel import (
+    group_lane_use,
     lane_use,
     static_lane_use,
     sweep_lane_use,
@@ -97,3 +99,39 @@ def test_sweep_lane_use_bounds():
         lanes = torch.randint(1, 33, (20,), generator=g)
         got = sweep_lane_use(int((lens * lanes).sum()), int(lens.sum()))
         assert 1 / 32 <= got <= 1.0
+
+
+def _issued(lens, group):
+    """The slot-test lanes a group of `group` lanes issues for chunks of
+    these lengths: group x ceil(len / group) each."""
+    return sum(group * -(-n // group) for n in lens)
+
+
+@pytest.mark.parametrize("lens,group,want", [
+    # full chunks of 128 swept by warps: no lane idles
+    ([128] * 13, 32, 1.0),
+    # the always-swept ground chunk holds one sphere: 1 of 32 lanes busy
+    ([1], 32, 1 / 32),
+    # the ground chunk and 13 full chunks at G = 32
+    ([1] + [128] * 13, 32, (1 + 13 * 128) / (32 + 13 * 128)),
+    # the final scene's last chunk of 102 slots at G = 8: 13 rounds of 8
+    ([102], 8, 102 / 104),
+    # one lane per ray (G = 1) never idles
+    ([1, 102, 128], 1, 1.0),
+    # nothing admitted
+    ([], 16, 0.0),
+])
+def test_group_lane_use(lens, group, want):
+    assert group_lane_use(sum(lens), _issued(lens, group)) == pytest.approx(want, rel=1e-12)
+
+
+def test_group_lane_use_bounds():
+    """Only a chunk's last round can leave lanes idle, so the group lane use
+    of chunks of at least G slots is above one half, and a larger G never
+    raises it."""
+    g = torch.Generator().manual_seed(2)
+    for _ in range(10):
+        lens = torch.randint(32, 257, (20,), generator=g).tolist()
+        uses = [group_lane_use(sum(lens), _issued(lens, group)) for group in (1, 4, 8, 16, 32)]
+        assert uses[0] == 1.0 and all(0.5 < u <= 1.0 for u in uses)
+        assert all(a >= b for a, b in zip(uses, uses[1:]))
