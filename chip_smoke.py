@@ -1254,6 +1254,21 @@ def engine_ops_per_block(dev, scene, cam, culled=None) -> float:
     return Count.ops / (len(rec.inputs) / 2)
 
 
+def log_dense_shape(name: str, shape, entries: list, kernel: str, pool: int) -> None:
+    """Log a dense group sweep's (K10, K11) launch shape, as the built
+    library reports it, and its kernels' registers and spills from the
+    nvcc -Xptxas -v report (entries, ptxas_kernels' of its source)."""
+    g, threads, staged = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    regs = "; ".join(f"{e['kernel']} {e['registers']} registers, spill stores "
+                     f"{e['spill_stores']} B, loads {e['spill_loads']} B, {e['smem']} B smem"
+                     for e in entries if e["kernel"].startswith(kernel))
+    log(f"[dense] {name}'s group sweep: {g} lanes per ray, blocks of {threads} threads, scene "
+        f"{'staged in shared memory' if staged else 'read from global memory'}; a pool of "
+        f"{pool:,} launches {-(-pool * g // threads):,} blocks, {pool * g / 32 / sms:.0f} warps "
+        f"per SM ({sms} SMs); {regs or 'no ptxas report kept beside the library'}")
+
+
 def bounce_cost(stats, n_live: int, finite_chunks: int, scene_bytes: int) -> dict:
     """The FP32 operations and bytes fused bounces with these counters
     need: the live-sphere tests at K5's counts (dense: every lane tests
@@ -1268,7 +1283,7 @@ def bounce_cost(stats, n_live: int, finite_chunks: int, scene_bytes: int) -> dic
                 bytes=lanes * LANE_BYTES + scene_bytes)
 
 
-def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float) -> dict:
+def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float, ptxas: dict) -> dict:
     """Phases 19-23: the fused wavefront engine.  render_progressive
     (engine="fused") at full width, dense (K10) on the final scene and
     culled (K14) on it and on the 8,192-sphere field, each run wrapped to
@@ -1324,20 +1339,20 @@ def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float) -> dic
 
     def hold(label, kernel, plain, rec, group=False):
         """The kernel against its plain version on the run's first, middle
-        and last pool batch: every output and the counters bit for bit;
-        with group (K14) also on the middle batch's first ODD_LANES lanes
-        (a partial block and, at G < 32, a partial warp of groups), and
-        the slot-test lanes its groups issue counted.  Returns (max abs
-        err, kernel ms, plain ms, counters, group lane use or None) at the
-        middle batch, a full pool in the steady state."""
+        and last pool batch and on the middle batch's first ODD_LANES
+        lanes (a partial block and, at fewer than 32 lanes a pool lane, a
+        partial warp of groups): every output and the counters bit for
+        bit; with group (K14) the slot-test lanes its groups issue
+        counted.  Returns (max abs err, kernel ms, plain ms, counters,
+        group lane use or None) at the middle batch, a full pool in the
+        steady state."""
         require(rec.mid < len(rec.inputs), f"{label}: the run took {len(rec.inputs)} bounces, "
                 f"fewer than {rec.mid + 1}")
         err, plain_ms, use = 0.0, {}, None
         batches = [(at, rec.inputs[at]) for at in (0, rec.mid, len(rec.inputs) - 1)]
-        if group:
-            batches.append((f"{rec.mid}, first {ODD_LANES:,} lanes",
-                            tuple(x[:ODD_LANES] for x in rec.inputs[rec.mid][:4])
-                            + rec.inputs[rec.mid][4:]))
+        batches.append((f"{rec.mid}, first {ODD_LANES:,} lanes",
+                        tuple(x[:ODD_LANES] for x in rec.inputs[rec.mid][:4])
+                        + rec.inputs[rec.mid][4:]))
         for at, (o, d, live, lane_ray, seed) in batches:
             st_k, st_p = (torch.zeros(4, dtype=torch.int64, device=dev) for _ in range(2))
             issued = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -1387,6 +1402,8 @@ def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float) -> dic
     live_final = int((final.radii > 0).sum())
 
     # --- phase 19: dense fused engine at the main path, then K10 against plain ---
+    log_dense_shape("K10", bk.group_shape(), ptxas["fused_bounce"], "fused_bounce_kernel",
+                    DEFAULT_POOL)
     arrays = bk.fused_scene_arrays(final.to(dev))
     k10_pair = (lambda *a, **k: bk.fused_bounce_cuda(*a[:4], arrays, *a[4:], **k),
                 lambda *a, **k: bk.fused_bounce_plain(*a[:4], arrays, *a[4:], **k))
@@ -1575,7 +1592,7 @@ def culled_cost(stats, n_chunks: int, sph_rows: int) -> dict:
                 flops=flops, bytes=rays * 32 + sph_rows * 16 + n_chunks * 20)
 
 
-def check_reference_path(dev, presets, final, cam_main, peak: float) -> dict:
+def check_reference_path(dev, presets, final, cam_main, peak: float, ptxas: dict) -> dict:
     """Phases 24-29: the reference bounce and its two engines, with the
     last three TPU kernels.  K11 (csrc/intersect.cu) against its plain
     version on a pool batch of the wavefront engine on the final scene and
@@ -1631,6 +1648,8 @@ def check_reference_path(dev, presets, final, cam_main, peak: float) -> dict:
                     launches=launches, tag=state.engine), rec
 
     # --- phase 24: the wavefront engine with K11 at the main path ---
+    log_dense_shape("K11", ik.group_shape(), ptxas["intersect"], "closest_hit_kernel",
+                    wf.DEFAULT_POOL)
     final_dev = final.to(dev)
     sph_f = ik.sphere_pack(final_dev.centers, final_dev.radii)
     live_f = int((final.radii > 0).sum())
@@ -1649,15 +1668,18 @@ def check_reference_path(dev, presets, final, cam_main, peak: float) -> dict:
 
     # --- phase 25: K11 against its plain version, bit for bit ---
     def hold_k11(label, o, d, sph, n_live):
-        stats = torch.zeros(1, dtype=torch.int64, device=dev)
+        """K11 against its plain version: t, idx and the count of tests
+        with disc >= 0 bit for bit."""
+        stats, st_p = (torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2))
         t_k, i_k = ik.closest_hit_cuda(o, d, sph, stats=stats)
-        (t_p, i_p), plain_ms = cuda_timed(lambda: ik.closest_hit_plain(o, d, sph))
-        same = torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+        (t_p, i_p), plain_ms = cuda_timed(lambda: ik.closest_hit_plain(o, d, sph, stats=st_p))
+        same = torch.equal(t_k, t_p) and torch.equal(i_k, i_p) and torch.equal(stats, st_p)
         err = float((t_k - t_p).abs().max())
         ms = kernel_ms(lambda: ik.closest_hit_cuda(o, d, sph), 50)
         cost = closest_hit_cost(o.shape[0], n_live, int(stats), peak, sph.shape[0])
         log(f"[k11] {label}: {o.shape[0]:,} rays x {n_live} live spheres, kernel == plain bit "
-            f"for bit {same} (t max abs err {err:.3e}); {ms:.4f} ms per launch, bound "
+            f"for bit {same} (t max abs err {err:.3e}; disc >= 0 tests kernel {int(stats):,}, "
+            f"plain {int(st_p):,}); {ms:.4f} ms per launch, bound "
             f"{cost['bound_ms']:.4f} ms ({cost['tests']:,} tests, {cost['near']:,} with "
             f"disc >= 0), plain {plain_ms:.2f} ms")
         require(same, f"{label}: K11 differs from its plain version")
@@ -1666,6 +1688,8 @@ def check_reference_path(dev, presets, final, cam_main, peak: float) -> dict:
     for o, d in rec_k11.picks():
         hold_k11("pool batch, final", o, d, sph_f, live_f)
     o_m, d_m = rec_k11.inputs[len(rec_k11.inputs) // 2]
+    hold_k11(f"pool batch (middle), first {ODD_LANES:,} rays, final", o_m[:ODD_LANES],
+             d_m[:ODD_LANES], sph_f, live_f)
     k11 = hold_k11("pool batch (middle), final", o_m, d_m, sph_f, live_f)
     field = presets.random_sphere_field(8192, seed=5, extent=30.0)
     field_dev = field.to(dev)
@@ -1971,10 +1995,10 @@ def main() -> int:
     # K8 with ray grads) ---
     rays = check_ray_pose_path(dev, final, cam_main)
     # --- phases 19-23: the fused wavefront engine (K10, K14) ---
-    fused = check_fused_path(dev, presets, final, cam_main, k, peak)
+    fused = check_fused_path(dev, presets, final, cam_main, k, peak, ptxas)
     # --- phases 24-29: the reference bounce, its scan and wavefront engines
     # (K11, K12, K13) ---
-    ref = check_reference_path(dev, presets, final, cam_main, peak)
+    ref = check_reference_path(dev, presets, final, cam_main, peak, ptxas)
 
     # --- phase 9: the kernel line, then the device line last ---
     # K5 at the main-path shape traced the rays K6 recorded (sample 0, the

@@ -1,14 +1,14 @@
 // The fused bounce: one bounce (closest hit, then shading) of every lane
 // of the wavefront engine's ray pool, in one launch.
 //
-// Replaces two kernels of the JAX package, as two instantiations of one
-// kernel over a scene accessor:
+// Replaces two kernels of the JAX package, as two kernels that share the
+// lane layout and the shading tail:
 //
 //   K10 distributed_raytracer_tpu/ops/pallas/bounce_kernel.py::
 //     _bounce_kernel (:306; pallas_call :529 in fused_bounce_rows :464):
-//     the dense scene.  Up to MAX_SPHERES spheres it is staged in shared
-//     memory (ResidentScene's layout); above, the threads read it from
-//     global memory (L2-resident), every sphere swept.
+//     the dense scene, every sphere swept.  Up to MAX_SPHERES spheres a
+//     block stages its sweep columns in shared memory (DR_DENSE_STAGE);
+//     above, the threads read them from global memory (L2-resident).
 //   K14 distributed_raytracer_tpu/ops/pallas/culled_bounce_kernel.py::
 //     _culled_bounce_kernel (:136; pallas_call :355 in
 //     _culled_fused_bounce_impl :305): the culled scene, walked chunk by
@@ -27,40 +27,51 @@
 // test) may hand in the five uniforms instead.
 //
 // What is not carried over is the TPU blocking: the (ray block x sphere
-// chunk) grid and its carried winner (a thread loops over the spheres),
-// the bf16 hi/mid/lo planes and the MXU one-hot select (the winner's f32
-// attributes are read directly), K14's scalar-prefetched per-block visit
-// order, its group-of-8 flag bitmasks and its double-buffered chunk DMA.
-// K14 walks the culled scene's chunks in the scene's own order (the
-// always-swept big chunks, then Morton order), so its winner is the dense
-// argmin over the culled scene, ties included: K10 on that scene returns
-// the same lanes bit for bit.
+// chunk) grid and its carried winner (a group of threads sweeps all the
+// spheres), the bf16 hi/mid/lo planes and the MXU one-hot select (the
+// winner's f32 attributes are read directly), K14's scalar-prefetched
+// per-block visit order, its group-of-8 flag bitmasks and its
+// double-buffered chunk DMA.  K14 walks the culled scene's chunks in the
+// scene's own order (the always-swept big chunks, then Morton order), so
+// its winner is the dense argmin over the culled scene, ties included: K10
+// on that scene returns the same lanes bit for bit.
 //
-// Design: K10 runs one thread per lane, the bounce loop's pieces of
-// trace.cuh and bounce.cuh (sweep through the accessor, shade<DRAWN> with
-// the draws made first).  K14 runs DR_GROUP consecutive threads per lane
-// (trace.cuh group_walk: a prefilter of DR_GROUP chunk positions at once,
-// each admitted chunk swept by the whole group, its (t, slot) minimum
-// taken by warp reductions), then the group's first thread draws, shades
-// and writes the lane: one thread per lane left a warp sweeping every
-// chunk any of its 32 incoherent rays admitted, and a pool of 16,384
-// lanes filled about four warps of each SM, so the sweep's latency was
-// exposed; the group walk sweeps only the lane's own chunks and launches
-// DR_GROUP times the warps.  Each launch also counts, when given a counter
+// Design: a group of consecutive threads holds one lane and finds its
+// closest hit together, then the group's first thread draws (or reads the
+// draws handed in), shades through bounce.cuh's shade<true> and writes the
+// lane.  K10 runs DR_DENSE_GROUP (8) threads per lane in blocks of
+// DR_DENSE_THREADS (256) through trace.cuh's group_sweep (lane q tests
+// spheres q, q + G, ..., a (t, index) minimum over the group by warp
+// reductions); K14 runs DR_GROUP (32) threads per lane in blocks of
+// DR_GROUP_THREADS (128) through group_walk (a prefilter of DR_GROUP chunk
+// positions at once, each admitted chunk swept by the whole group with
+// group_sweep).  One thread per lane filled about four warps of each SM at
+// the engine's pool of 16,384 lanes and left each thread a chain of
+// dependent sphere tests at full latency (and, for K14, a warp sweeping
+// every chunk any of its 32 incoherent rays admitted); a group launches G
+// times the warps and shortens the chain G times.  Each shape is the
+// fastest scripts/torch_group_probe.py found for its kernel on the
+// engines' pool batches (PERF.md section 6): K10 shades every lane, and
+// with 8 lanes a group a warp shades four lanes at once where 32 would
+// shade one (blocks of 512 threads were 2% faster, within the probe's
+// spread, but spilled).  K10's staged block holds only the sweep columns
+// (16 B a sphere: 8 KB at 512 spheres, 4 MB staged by a launch of 16,384
+// lanes);
+// the shading thread reads its winner's seven attributes from global
+// memory, once per lane.  Each launch also counts, when given a counter
 // array, the lanes, the chunks swept (K10: one per lane), the sphere tests
-// and the tests whose discriminant is not negative; K14 also the slot-
-// test lanes its groups issued (group lane use = tests / issued).
+// and the tests whose discriminant is not negative; K14 also the slot-test
+// lanes its groups issued (group lane use = tests / issued).
 //
 // Bound: FP32 throughput in the sweep, as K5 (18 operations a live-sphere
 // test, 8 more when the discriminant is not negative; for K14 also 25 a
 // finite chunk bound test), counted by chip_smoke.py from the counters.
 // Bytes are the pool's ray state read and written once (about 130 B a
-// lane) and the scene.  Known costs: K10 at the engine's pool of 16,384
-// lanes fills about four warps of each SM, so its sweep's latency is
-// exposed; K14's groups read an admitted chunk's slots once per ray (from
-// L1/L2) where a warp of 32 rays shared one read; and the engine's host
-// loop (refill, drain, one sync per block) sets the pace more than either
-// kernel does.
+// lane) and the scene.  Known costs: a group's lanes read G distinct
+// spheres at a time where one thread per lane shared each read across a
+// warp (K14: a chunk's slots once per ray); the shading runs on one thread
+// of each group while the others wait; and the engine's host loop (refill,
+// drain, one sync per block) sets the pace more than either kernel does.
 //
 // Built with -fmad=false (ops/kernels/_build.py), so it agrees with its
 // plain versions, ops/kernels/bounce_kernel.py::fused_bounce_plain and
@@ -69,9 +80,19 @@
 #include <climits>
 #include <cstdint>
 
-#include "trace.cuh"
+// K10's launch shape (a probe builds others with -D); K14's is trace.cuh's
+// DR_GROUP and DR_GROUP_THREADS
+#ifndef DR_DENSE_GROUP
+#define DR_DENSE_GROUP 8
+#endif
+#ifndef DR_DENSE_THREADS
+#define DR_DENSE_THREADS 256
+#endif
+#ifndef DR_DENSE_STAGE
+#define DR_DENSE_STAGE 1
+#endif
 
-#define THREADS 128
+#include "trace.cuh"
 
 // The lanes in and out, [R] rows, xyz interleaved as [R, 3].
 struct Lanes {
@@ -93,27 +114,16 @@ struct Lanes {
   float* u;              // [R]
 };
 
-// The dense scene, all n spheres swept: in shared memory (staged, attribute
-// rows MAX_SPHERES apart) or in global memory (rows n apart).  Counts the
-// sweeps, the tests and the tests with disc >= 0.
+// The winner's accessor for shading: sphere(j) from the sweep columns
+// (shared or global memory), attr(ATT_*, j) from the attribute rows in
+// global memory, n apart.
 struct DenseScene {
   const float4* sph;  // [n]
-  const float* att;   // [ATT_ROWS, stride]
-  int stride, n;
-  unsigned long long admitted, tests, near_tests;
+  const float* att;   // [ATT_ROWS, n]
+  int n;
 
   __device__ __forceinline__ float4 sphere(int j) const { return sph[j]; }
-  __device__ __forceinline__ float attr(int row, int j) const { return att[row * stride + j]; }
-  __device__ __forceinline__ float sweep(float ox, float oy, float oz, float dx, float dy,
-                                         float dz, float a, float inv_a, int* idx) {
-    float best = DR_BIG;
-    int bi = 0;
-    ++admitted;
-    tests += (unsigned long long)n;
-    sweep_range<true>(sph, 0, n, ox, oy, oz, dx, dy, dz, a, inv_a, best, bi, &near_tests);
-    *idx = bi;
-    return best;
-  }
+  __device__ __forceinline__ float attr(int row, int j) const { return att[row * n + j]; }
 };
 
 // The shading tail of lane i's bounce, after its sweep gave (t, bi):
@@ -165,50 +175,40 @@ __device__ __forceinline__ float load_lane(const Lanes& L, int i, float o[3], fl
   return d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
 }
 
-// One bounce of lane i through the scene accessor sc (K10).
-template <class Scene>
-__device__ __forceinline__ void bounce_lane(Scene& sc, const Lanes& L, int i) {
-  float o[3], d[3];
-  const float a = load_lane(L, i, o, d);
-  const float inv_a = 1.0f / a;
-  int bi;
-  const float t = sc.sweep(o[0], o[1], o[2], d[0], d[1], d[2], a, inv_a, &bi);
-  finish_lane(sc, L, i, o, d, a, t, bi);
-}
-
-// Adds the launch's counts to stats [4] (lanes, chunks swept, sphere
-// tests, tests with disc >= 0).  Every thread of the block calls it.
-template <class Scene>
-__device__ __forceinline__ void add_stats(const Scene& sc, bool lane,
-                                          unsigned long long* stats) {
-  if (stats == nullptr) return;
-  add_count(lane ? 1ull : 0ull, stats + 0);
-  add_count(sc.admitted, stats + 1);
-  add_count(sc.tests, stats + 2);
-  add_count(sc.near_tests, stats + 3);
-}
-
-// K10.  RESIDENT: the scene (n <= MAX_SPHERES) staged in shared memory.
-template <bool RESIDENT>
-__global__ void __launch_bounds__(THREADS)
+// K10: DR_DENSE_GROUP consecutive threads sweep lane i = thread /
+// DR_DENSE_GROUP's ray over the n spheres (group_sweep), then its first
+// thread shades and writes it.  STAGED: the sweep columns (n <=
+// MAX_SPHERES) staged in shared memory.  Counts into stats [4] (lanes,
+// sweeps, sphere tests, tests with disc >= 0) when given.
+template <bool STAGED>
+__global__ void __launch_bounds__(DR_DENSE_THREADS)
 fused_bounce_kernel(const float4* __restrict__ sph,    // [n]: cx, cy, cz, r2
                     const float* __restrict__ attrs,   // [11, n]: ops/kernels/bounce.py A_*
                     int n, Lanes L, unsigned long long* __restrict__ stats) {
-  __shared__ float4 s_sph[RESIDENT ? MAX_SPHERES : 1];
-  __shared__ float s_att[RESIDENT ? ATT_ROWS * MAX_SPHERES : 1];
-  if (RESIDENT) {
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      s_sph[j] = sph[j];
-#pragma unroll
-      for (int r = 0; r < ATT_ROWS; ++r) s_att[r * MAX_SPHERES + j] = attrs[(3 + r) * n + j];
-    }
+  __shared__ float4 s_sph[STAGED ? MAX_SPHERES : 1];
+  if (STAGED) {
+    for (int j = threadIdx.x; j < n; j += DR_DENSE_THREADS) s_sph[j] = sph[j];
     __syncthreads();
   }
-  DenseScene sc = RESIDENT ? DenseScene{s_sph, s_att, MAX_SPHERES, n, 0, 0, 0}
-                           : DenseScene{sph, attrs + 3 * n, n, n, 0, 0, 0};
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < L.R) bounce_lane(sc, L, i);
-  add_stats(sc, i < L.R, stats);
+  const int i = (blockIdx.x * DR_DENSE_THREADS + threadIdx.x) / DR_DENSE_GROUP;
+  const bool first = (threadIdx.x & (DR_DENSE_GROUP - 1)) == 0;
+  unsigned long long near = 0;
+  if (i < L.R) {
+    float o[3], d[3];
+    const float a = load_lane(L, i, o, d);
+    const DenseScene sc{STAGED ? s_sph : sph, attrs + 3 * n, n};
+    int bi;
+    const float t = group_sweep<DR_DENSE_GROUP>(sc.sph, 0, n, o[0], o[1], o[2], d[0], d[1],
+                                                d[2], a, 1.0f / a, &bi, &near);
+    if (first) finish_lane(sc, L, i, o, d, a, t, bi);
+  }
+  if (stats != nullptr) {
+    const unsigned long long lane = i < L.R && first ? 1ull : 0ull;
+    add_count(lane, stats + 0);
+    add_count(lane, stats + 1);
+    add_count(lane * (unsigned long long)n, stats + 2);
+    add_count(near, stats + 3);
+  }
 }
 
 // K14's chunk positions: the scene's own order, chunk c sweeping its
@@ -245,7 +245,7 @@ culled_fused_bounce_kernel(const float4* __restrict__ sph,     // [n_slots]: cx,
                                          chunk, o[0], o[1], o[2], d[0], d[1], d[2], a,
                                          1.0f / a, &bi, n);
     // the winner's accessor for shading (its sweep is not called)
-    const DenseScene sc{sph, attrs + 3 * n_slots, n_slots, n_slots, 0, 0, 0};
+    const DenseScene sc{sph, attrs + 3 * n_slots, n_slots};
     if (first) finish_lane(sc, L, i, o, d, a, t, bi);
   }
   if (stats != nullptr) {
@@ -271,16 +271,19 @@ extern "C" int fused_bounce_launch(const float* sph, const float* attrs, int n,
                                    float* new_o, float* new_d, float* atten, float* color,
                                    int* finished, int* idx, uint8_t* hit, float* ruv, float* u,
                                    unsigned long long* stats, void* stream) {
-  if (n < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || R < 1 || R > (INT_MAX - DR_DENSE_THREADS) / DR_DENSE_GROUP) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Lanes L = lanes(o, d, act, rid, draws, seed, R, new_o, new_d, atten, color, finished,
                         idx, hit, ruv, u);
-  const int blocks = (R + THREADS - 1) / THREADS;
+  const int blocks = (R * DR_DENSE_GROUP + DR_DENSE_THREADS - 1) / DR_DENSE_THREADS;
   const float4* s = reinterpret_cast<const float4*>(sph);
-  if (n <= MAX_SPHERES) {
-    fused_bounce_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(s, attrs, n, L, stats);
+  if (DR_DENSE_STAGE && n <= MAX_SPHERES) {
+    fused_bounce_kernel<true><<<blocks, DR_DENSE_THREADS, 0, (cudaStream_t)stream>>>(
+        s, attrs, n, L, stats);
   } else {
-    fused_bounce_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(s, attrs, n, L,
-                                                                              stats);
+    fused_bounce_kernel<false><<<blocks, DR_DENSE_THREADS, 0, (cudaStream_t)stream>>>(
+        s, attrs, n, L, stats);
   }
   return (int)cudaGetLastError();
 }
@@ -311,4 +314,11 @@ extern "C" int culled_fused_bounce_launch(const float* sph, const float* attrs,
 extern "C" void culled_fused_bounce_shape(int* shape) {
   shape[0] = DR_GROUP;
   shape[1] = DR_GROUP_THREADS;
+}
+
+// K10's launch shape: lanes (threads) per ray, threads per block, staged.
+extern "C" void fused_bounce_shape(int* shape) {
+  shape[0] = DR_DENSE_GROUP;
+  shape[1] = DR_DENSE_THREADS;
+  shape[2] = DR_DENSE_STAGE;
 }

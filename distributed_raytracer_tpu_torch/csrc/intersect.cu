@@ -10,63 +10,71 @@
 // What is not carried over is the TPU blocking: rays on the 128 lanes of
 // (1, BR) rows and the sphere axis as a second grid dimension of
 // (CHUNK, 1) VMEM columns, whose per-chunk argmin is merged into an output
-// block that stays resident across the sweep.  Here one thread holds one
-// ray and its running (best, index) in registers; the block stages the
-// scene through shared memory in float4 tiles of TILE spheres, looping
-// over tiles for any N.  Within a tile the sweep is bounce.cuh's
-// (sweep_range: ascending index, strict <), and the strict < carries across
-// tiles in index order, so a tie keeps the first index: what JAX's
-// chunked argmin and the plain argmin give, bit for bit.
+// block that stays resident across the sweep.
+//
+// Design: DR_DENSE_GROUP consecutive threads hold one ray and sweep the
+// scene together (trace.cuh group_sweep: lane q tests spheres q, q + G,
+// ..., then a (t, index) minimum over the group by warp reductions), so a
+// pool of 16,384 rays launches G times the warps that one thread per ray
+// did (about four warps of each SM, each thread's chain of dependent
+// sphere tests run at full latency), and a lane's chain is n / G tests
+// long.  The lanes read the sweep columns from global memory (L1/L2-
+// resident: 8 KB at 512 spheres, 131 KB at 8,193); DR_DENSE_STAGE would
+// stage them in shared memory up to MAX_SPHERES spheres.  The shape, 16
+// lanes a ray in blocks of 512 threads, unstaged, is the fastest that
+// scripts/torch_group_probe.py found on the reference engine's pool batch
+// and on 16,384 random rays over the 8,192-sphere field (PERF.md section
+// 6).  The group's first thread writes t and idx.
 //
 // Bound: FP32 throughput, 18 operations a live ray x sphere test and 8
 // more when the discriminant is not negative (chip_smoke.py counts them);
 // the bytes are the rays read once (24 B), t and idx written (8 B) and the
-// scene (16 B a sphere).  At the wavefront engine's pool of 16,384 rays a
-// launch fills about four warps of each SM, so the sweep's latency is
-// exposed; the tile's shared-memory reads are broadcasts (every thread
-// reads the same sphere).
+// scene (16 B a sphere).  Known cost: a group's lanes read G distinct
+// spheres at a time, where one thread per ray shared each read across a
+// warp of 32 rays.
 //
 // Built with -fmad=false (ops/kernels/_build.py), so it agrees with its
 // plain version, ops/kernels/intersect_kernel.py::closest_hit_plain.
 #include <cuda_runtime.h>
+#include <climits>
+
+// the launch shape (a probe builds others with -D)
+#ifndef DR_DENSE_GROUP
+#define DR_DENSE_GROUP 16
+#endif
+#ifndef DR_DENSE_THREADS
+#define DR_DENSE_THREADS 512
+#endif
+#ifndef DR_DENSE_STAGE
+#define DR_DENSE_STAGE 0
+#endif
 
 #include "trace.cuh"
 
-#define THREADS 128
-#define TILE 256
-
-__global__ void __launch_bounds__(THREADS)
+// STAGED: the sweep columns (n <= MAX_SPHERES) staged in shared memory.
+template <bool STAGED>
+__global__ void __launch_bounds__(DR_DENSE_THREADS)
 closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const float4* __restrict__ sph, int n, int R, float* __restrict__ t_out,
                    int* __restrict__ idx_out, unsigned long long* __restrict__ stats) {
-  __shared__ float4 tile[TILE];
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = i < R;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
-  if (live) {
-    ox = o[3 * i];
-    oy = o[3 * i + 1];
-    oz = o[3 * i + 2];
-    dx = d[3 * i];
-    dy = d[3 * i + 1];
-    dz = d[3 * i + 2];
-  }
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float inv_a = 1.0f / a;
-  float best = DR_BIG;
-  int bi = 0;
-  unsigned long long near = 0;
-  for (int j0 = 0; j0 < n; j0 += TILE) {
-    const int len = min(TILE, n - j0);
-    __syncthreads();  // the previous tile is swept
-    for (int k = threadIdx.x; k < len; k += THREADS) tile[k] = sph[j0 + k];
+  __shared__ float4 s_sph[STAGED ? MAX_SPHERES : 1];
+  if (STAGED) {
+    for (int j = threadIdx.x; j < n; j += DR_DENSE_THREADS) s_sph[j] = sph[j];
     __syncthreads();
-    if (live) sweep_range<true>(tile, 0, len, ox, oy, oz, dx, dy, dz, a, inv_a, best, bi,
-                                &near, j0);
   }
-  if (live) {
-    t_out[i] = best;
-    idx_out[i] = bi;
+  const int i = (blockIdx.x * DR_DENSE_THREADS + threadIdx.x) / DR_DENSE_GROUP;
+  unsigned long long near = 0;
+  if (i < R) {
+    const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+    const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+    const float a = dx * dx + dy * dy + dz * dz;
+    int bi;
+    const float t = group_sweep<DR_DENSE_GROUP>(STAGED ? s_sph : sph, 0, n, ox, oy, oz, dx, dy,
+                                                dz, a, 1.0f / a, &bi, &near);
+    if ((threadIdx.x & (DR_DENSE_GROUP - 1)) == 0) {
+      t_out[i] = t;
+      idx_out[i] = bi;
+    }
   }
   if (stats != nullptr) add_count(near, stats);
 }
@@ -74,9 +82,24 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
 extern "C" int closest_hit_launch(const float* o, const float* d, const float* sph, int n,
                                   int R, float* t_out, int* idx_out,
                                   unsigned long long* stats, void* stream) {
-  if (n < 1 || R < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (R + THREADS - 1) / THREADS;
-  closest_hit_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      o, d, reinterpret_cast<const float4*>(sph), n, R, t_out, idx_out, stats);
+  if (n < 1 || R < 1 || R > (INT_MAX - DR_DENSE_THREADS) / DR_DENSE_GROUP) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = (R * DR_DENSE_GROUP + DR_DENSE_THREADS - 1) / DR_DENSE_THREADS;
+  const float4* s = reinterpret_cast<const float4*>(sph);
+  if (DR_DENSE_STAGE && n <= MAX_SPHERES) {
+    closest_hit_kernel<true><<<blocks, DR_DENSE_THREADS, 0, (cudaStream_t)stream>>>(
+        o, d, s, n, R, t_out, idx_out, stats);
+  } else {
+    closest_hit_kernel<false><<<blocks, DR_DENSE_THREADS, 0, (cudaStream_t)stream>>>(
+        o, d, s, n, R, t_out, idx_out, stats);
+  }
   return (int)cudaGetLastError();
+}
+
+// The launch shape: lanes (threads) per ray, threads per block, staged.
+extern "C" void closest_hit_shape(int* shape) {
+  shape[0] = DR_DENSE_GROUP;
+  shape[1] = DR_DENSE_THREADS;
+  shape[2] = DR_DENSE_STAGE;
 }

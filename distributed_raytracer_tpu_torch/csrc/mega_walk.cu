@@ -42,7 +42,7 @@
 // what follows).  So a
 // chunk that few lanes admit is swept by the whole warp for one admitting
 // ray at a time, a slot per lane, and a warp minimum of (t, slot) gives
-// that ray what its own sweep gives (trace.cuh WalkChunks<true>).  The
+// that ray what its own sweep gives (trace.cuh WalkChunks).  The
 // kernel counts the bounces, the chunks admitted, their slot tests and the
 // tests with disc >= 0 (per lane, as the plain version counts them), and
 // the warp steps and the slot-test rounds the warps issue (lane use and
@@ -89,8 +89,8 @@ mega_walk_kernel(const float4* __restrict__ sph,     // [n_slots]: cx, cy, cz, r
   __shared__ float s_cam[CAM_ROW];
   if (threadIdx.x < CAM_ROW) s_cam[threadIdx.x] = cam[threadIdx.x];
   __syncthreads();
-  WalkChunks<true> sc{sph, attrs + 3 * n_slots, bounds, chunk_len, n_slots, chunk, n_chunks,
-                      0, 0, 0, 0};
+  WalkChunks sc{sph, attrs + 3 * n_slots, bounds, chunk_len, n_slots, chunk, n_chunks,
+                0, 0, 0, 0};
   const CameraRays rays{s_cam, nullptr, pix0, rid_base, cam_seed, (uint32_t)w};
   persist_trace<RECORD>(sc, rays, (unsigned long long)n_work, bounce_seed, max_depth, colors,
                         lengths, tape, counts);

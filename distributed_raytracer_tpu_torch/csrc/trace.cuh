@@ -19,9 +19,13 @@
 // Both give sphere(j) (cx, cy, cz, r2), attr(ATT_*, j) and sweep(...),
 // which returns the closest t (DR_BIG on a miss) and its index.
 //
-// group_walk, the same walk with a group of lanes holding one ray, is the
-// closest hit of the culled fused bounce (K14, csrc/fused_bounce.cu) and
-// the culled closest hit (K12/K13, csrc/culled_intersect.cu).
+// group_sweep, a dense sweep with a group of lanes holding one ray, is the
+// closest hit of the dense fused bounce (K10, csrc/fused_bounce.cu) and
+// the dense closest hit (K11, csrc/intersect.cu); group_walk, the walk
+// with a group of lanes holding one ray, sweeps each chunk it admits with
+// group_sweep and is the closest hit of the culled fused bounce (K14,
+// csrc/fused_bounce.cu) and the culled closest hit (K12/K13,
+// csrc/culled_intersect.cu).
 #pragma once
 #include <cstdint>
 
@@ -99,20 +103,19 @@ __device__ __forceinline__ bool chunk_admits(float4 b, float ox, float oy, float
 // included.  Counts, per thread, the chunks admitted, the slot tests they
 // run and those tests whose discriminant is not negative.
 //
-// WARP (K9): the lanes that sweep together (__activemask at entry) decide
-// each chunk together.  Each lane admits a chunk by its own test, but a
-// warp sweeps a chunk for all of its lanes when any one admits it, and
-// the lanes that did not idle through that sweep.  So when few lanes
-// admit a chunk (k of them, k x (its rounds + 2) < its length), the warp
-// sweeps it for one admitting ray at a time, each lane testing every m-th
-// slot (m lanes together), and gathers the ray's closest hit by a warp
-// minimum of (t, slot): the first slot with the smallest t, what the
-// lane's own strict-< sweep finds, and merged with its best t the same
-// way, so results and per-lane counters are unchanged bit for bit.  The
-// slot-test rounds the warp issues are counted once per chunk by the
-// lowest lane (warp_tests; its length when the lanes sweep alone, k x its
-// rounds when together), so sweep lane use = tests / (32 x warp_tests).
-template <bool WARP>
+// The lanes that sweep together (__activemask at entry) decide each chunk
+// together.  Each lane admits a chunk by its own test, but a warp sweeps a
+// chunk for all of its lanes when any one admits it, and the lanes that
+// did not idle through that sweep.  So when few lanes admit a chunk (k of
+// them, k x (its rounds + 2) < its length), the warp sweeps it for one
+// admitting ray at a time, each lane testing every m-th slot (m lanes
+// together), and gathers the ray's closest hit by a warp minimum of (t,
+// slot): the first slot with the smallest t, what the lane's own strict-<
+// sweep finds, and merged with its best t the same way, so results and
+// per-lane counters are unchanged bit for bit.  The slot-test rounds the
+// warp issues are counted once per chunk by the lowest lane (warp_tests;
+// its length when the lanes sweep alone, k x its rounds when together),
+// so sweep lane use = tests / (32 x warp_tests).
 struct WalkChunks {
   const float4* sph;      // [n_slots] cx cy cz r2
   const float* att;       // [ATT_ROWS, n_slots]
@@ -128,13 +131,9 @@ struct WalkChunks {
     float best = DR_BIG;
     int bi = 0;
     const int lane = threadIdx.x & 31;
-    unsigned together = 0u;
-    int m = 1, q = 0;  // the lanes sweeping together, and this lane's rank among them
-    if constexpr (WARP) {
-      together = __activemask();
-      m = __popc(together);
-      q = __popc(together & ((1u << lane) - 1u));
-    }
+    const unsigned together = __activemask();
+    const int m = __popc(together);  // the lanes sweeping together
+    const int q = __popc(together & ((1u << lane) - 1u));  // this lane's rank among them
     for (int c = 0; c < n_chunks; ++c) {
       const bool admit = chunk_admits(bounds[c], ox, oy, oz, dx, dy, dz, a, inv_a, best);
       const int j0 = c * chunk;
@@ -143,44 +142,42 @@ struct WalkChunks {
         ++admitted;
         tests += (unsigned long long)len;
       }
-      if constexpr (WARP) {
-        const unsigned adm = __ballot_sync(together, admit);
-        if (adm == 0u) continue;
-        const int k = __popc(adm);
-        const int rounds = (len + m - 1) / m;
-        if (k * (rounds + 2) < len) {  // few admit: sweep together, one ray at a time
-          if (q == 0) warp_tests += (unsigned long long)(k * rounds);
-          for (unsigned todo = adm; todo != 0u; todo &= todo - 1u) {
-            const int r = __ffs(todo) - 1;
-            const float rox = __shfl_sync(together, ox, r);
-            const float roy = __shfl_sync(together, oy, r);
-            const float roz = __shfl_sync(together, oz, r);
-            const float rdx = __shfl_sync(together, dx, r);
-            const float rdy = __shfl_sync(together, dy, r);
-            const float rdz = __shfl_sync(together, dz, r);
-            const float ra = __shfl_sync(together, a, r);
-            const float rinv = __shfl_sync(together, inv_a, r);
-            float tb = DR_BIG;  // t > 0, so its bits order as unsigned ints
-            int jb = 0;
-            unsigned long long nn = 0;
-            sweep_range<true>(sph, j0 + q, j0 + len, rox, roy, roz, rdx, rdy, rdz, ra, rinv, tb,
-                              jb, &nn, 0, m);
-            const unsigned tmin = __reduce_min_sync(together, __float_as_uint(tb));
-            const unsigned jmin =
-                __reduce_min_sync(together, __float_as_uint(tb) == tmin ? (unsigned)jb : ~0u);
-            const unsigned n_near = __reduce_add_sync(together, (unsigned)nn);
-            if (lane == r) {
-              near_tests += n_near;
-              if (__uint_as_float(tmin) < best) {
-                best = __uint_as_float(tmin);
-                bi = (int)jmin;
-              }
+      const unsigned adm = __ballot_sync(together, admit);
+      if (adm == 0u) continue;
+      const int k = __popc(adm);
+      const int rounds = (len + m - 1) / m;
+      if (k * (rounds + 2) < len) {  // few admit: sweep together, one ray at a time
+        if (q == 0) warp_tests += (unsigned long long)(k * rounds);
+        for (unsigned todo = adm; todo != 0u; todo &= todo - 1u) {
+          const int r = __ffs(todo) - 1;
+          const float rox = __shfl_sync(together, ox, r);
+          const float roy = __shfl_sync(together, oy, r);
+          const float roz = __shfl_sync(together, oz, r);
+          const float rdx = __shfl_sync(together, dx, r);
+          const float rdy = __shfl_sync(together, dy, r);
+          const float rdz = __shfl_sync(together, dz, r);
+          const float ra = __shfl_sync(together, a, r);
+          const float rinv = __shfl_sync(together, inv_a, r);
+          float tb = DR_BIG;  // t > 0, so its bits order as unsigned ints
+          int jb = 0;
+          unsigned long long nn = 0;
+          sweep_range<true>(sph, j0 + q, j0 + len, rox, roy, roz, rdx, rdy, rdz, ra, rinv, tb,
+                            jb, &nn, 0, m);
+          const unsigned tmin = __reduce_min_sync(together, __float_as_uint(tb));
+          const unsigned jmin =
+              __reduce_min_sync(together, __float_as_uint(tb) == tmin ? (unsigned)jb : ~0u);
+          const unsigned n_near = __reduce_add_sync(together, (unsigned)nn);
+          if (lane == r) {
+            near_tests += n_near;
+            if (__uint_as_float(tmin) < best) {
+              best = __uint_as_float(tmin);
+              bi = (int)jmin;
             }
           }
-          continue;
         }
-        if (q == 0) warp_tests += (unsigned long long)len;
+        continue;
       }
+      if (q == 0) warp_tests += (unsigned long long)len;
       if (!admit) continue;
       sweep_range<true>(sph, j0, j0 + len, ox, oy, oz, dx, dy, dz, a, inv_a, best, bi,
                         &near_tests);
@@ -201,6 +198,56 @@ struct WalkChunks {
 static_assert(DR_GROUP >= 1 && DR_GROUP <= 32 && (DR_GROUP & (DR_GROUP - 1)) == 0,
               "DR_GROUP must be a power of two up to 32");
 static_assert(DR_GROUP_THREADS % 32 == 0, "DR_GROUP_THREADS must be whole warps");
+
+// The dense sweeps' launch shape (DR_DENSE_GROUP lanes per ray,
+// DR_DENSE_THREADS threads per block, and DR_DENSE_STAGE: whether a block
+// of a scene of up to MAX_SPHERES spheres stages its sweep columns in
+// shared memory) is set by each of their sources, K10's
+// (csrc/fused_bounce.cu) and K11's (csrc/intersect.cu), before it
+// includes this file.
+#ifdef DR_DENSE_GROUP
+static_assert(DR_DENSE_THREADS % 32 == 0, "DR_DENSE_THREADS must be whole warps");
+#endif
+
+// The lanes of this thread's group of G consecutive lanes of its warp.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G must be a power of two up to 32");
+  const int base = (threadIdx.x & 31) & ~(G - 1);
+  return G == 32 ? 0xFFFFFFFFu : ((1u << (G & 31)) - 1u) << base;
+}
+
+// The group's least (t, slot): the least t bits over the lanes of gmask
+// (t > 0, so its bits order as unsigned ints), then the least slot among
+// the lanes at that t.  Each lane passes the first slot of its own least
+// t, so this is the first slot of the group's least t, what one thread's
+// strict-< sweep over the same slots in ascending order finds; on every
+// lane.  A lane that hit nothing passes (DR_BIG, 0).
+__device__ __forceinline__ float group_min(unsigned gmask, float tb, int jb, int* idx) {
+  const unsigned tmin = __reduce_min_sync(gmask, __float_as_uint(tb));
+  *idx = (int)__reduce_min_sync(gmask, __float_as_uint(tb) == tmin ? (unsigned)jb : ~0u);
+  return __uint_as_float(tmin);
+}
+
+// The dense sweep of spheres j0 .. j1-1 of sph by a group of G
+// consecutive lanes of a warp, every lane passing the ray's o, d, a and
+// inv_a: lane q tests spheres j0 + q, j0 + q + G, ... with sweep_range's
+// arithmetic into its own (t, index), and group_min gives every lane the
+// least t (DR_BIG on a miss) and in *idx its first index (0 on a miss).
+// That is what one thread's strict-< sweep of the same spheres, JAX's
+// chunked argmin and the plain first argmin give, bit for bit.  Adds each
+// lane's tests whose discriminant is not negative to its *n_near.
+template <int G>
+__device__ __forceinline__ float group_sweep(const float4* sph, int j0, int j1, float ox,
+                                             float oy, float oz, float dx, float dy, float dz,
+                                             float a, float inv_a, int* idx,
+                                             unsigned long long* n_near) {
+  float tb = DR_BIG;
+  int jb = 0;
+  sweep_range<true>(sph, j0 + (int)(threadIdx.x & (G - 1)), j1, ox, oy, oz, dx, dy, dz, a,
+                    inv_a, tb, jb, n_near, 0, G);
+  return group_min(group_mask<G>(), tb, jb, idx);
+}
 
 // Per-lane counts of a group walk.  Each lane counts the finite bound
 // tests of its own prefilter positions and the disc >= 0 tests of its own
@@ -226,21 +273,17 @@ struct GroupCounts {
 // candidates (a ballot) are taken in ascending position, and once best has
 // fallen since the prefilter each is tested again with the same call, the
 // same operands and the current best, so the chunks admitted are the
-// sequential walk's exactly.  Sweep: lane q tests slots j0 + q, j0 + q +
-// G, ... with sweep_range's arithmetic into its own (t, slot); the
-// group's minimum of (t bits, then slot among the lanes at that t; t > 0,
-// so its bits order as unsigned ints) is the first slot of the chunk's
-// least t, what a strict-< sweep finds, merged into best with a strict <.
+// sequential walk's exactly.  Sweep: group_sweep over the chunk's slots,
+// its first slot of the least t merged into best with a strict <.
 template <int G, class At, class Len>
 __device__ __forceinline__ float group_walk(const float4* __restrict__ sph,
                                             const float4* __restrict__ bounds, int n_pos,
                                             At at, Len len_of, int chunk, float ox, float oy,
                                             float oz, float dx, float dy, float dz, float a,
                                             float inv_a, int* idx, GroupCounts& n) {
-  const int lane = threadIdx.x & 31;
-  const int q = lane & (G - 1);
-  const int base = lane - q;
-  const unsigned gmask = G == 32 ? 0xFFFFFFFFu : ((1u << (G & 31)) - 1u) << base;
+  const int q = threadIdx.x & (G - 1);
+  const unsigned gmask = group_mask<G>();
+  const int base = (threadIdx.x & 31) - q;
   float best = DR_BIG;
   int bi = 0;
   for (int p0 = 0; p0 < n_pos; p0 += G) {
@@ -265,16 +308,12 @@ __device__ __forceinline__ float group_walk(const float4* __restrict__ sph,
         n.tests += (unsigned long long)len;
         n.issued += (unsigned long long)(G * ((len + G - 1) / G));
       }
-      float tb = DR_BIG;
-      int jb = 0;
-      sweep_range<true>(sph, j0 + q, j0 + len, ox, oy, oz, dx, dy, dz, a, inv_a, tb, jb,
-                        &n.near_tests, 0, G);
-      const unsigned tmin = __reduce_min_sync(gmask, __float_as_uint(tb));
-      const unsigned jmin =
-          __reduce_min_sync(gmask, __float_as_uint(tb) == tmin ? (unsigned)jb : ~0u);
-      if (__uint_as_float(tmin) < best) {
-        best = __uint_as_float(tmin);
-        bi = (int)jmin;
+      int jc;
+      const float tc = group_sweep<G>(sph, j0, j0 + len, ox, oy, oz, dx, dy, dz, a, inv_a, &jc,
+                                      &n.near_tests);
+      if (tc < best) {
+        best = tc;
+        bi = jc;
       }
     }
   }

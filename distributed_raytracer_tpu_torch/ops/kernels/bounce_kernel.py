@@ -21,8 +21,9 @@ the same image at equal scene content.  `draws=` hands in the five
 uniforms instead (tests do).
 
 The TPU kernel's scheduling arguments (block_rays, the sphere chunk of
-its grid, DRAY_FORCE_CHUNK) have no counterpart: one thread per lane
-sweeps the whole scene.
+its grid, DRAY_FORCE_CHUNK) have no counterpart: a group of threads per
+lane sweeps the whole scene (csrc/trace.cuh group_sweep) and its first
+thread shades, the shape read by `group_shape`.
 """
 
 from __future__ import annotations
@@ -170,6 +171,14 @@ def _lib():
     lib.fused_bounce_launch.argtypes = [p, p, i] + LANE_ARGTYPES
     lib.fused_bounce_launch.restype = i
     return lib
+
+
+def group_shape() -> Tuple[int, int, int]:
+    """(lanes per pool lane, threads per block, 1 if blocks stage the
+    scene in shared memory (up to 512 spheres) else 0) of the built K10."""
+    shape = (ctypes.c_int * 3)()
+    _lib().fused_bounce_shape(shape)
+    return shape[0], shape[1], shape[2]
 
 
 def fused_bounce_cuda(ray_o, ray_d, active, ray_id, scene_arrays, seed: int, *,

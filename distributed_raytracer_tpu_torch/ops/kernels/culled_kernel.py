@@ -22,9 +22,11 @@ bound tiles, has no counterpart: a ray reads bounds[order[b, p]].
 
 Both culled kernels of the port (K12/K13 here, K14 in
 culled_bounce_kernel.py) walk a ray's chunks with a group of lanes
-(csrc/trace.cuh group_walk).  `group_walk_plain` is a plain model of that
-schedule for the tests, which hold it to the walk of one thread per ray;
-nothing on the card path calls it.
+(csrc/trace.cuh group_walk), and both dense ones (K11 in
+intersect_kernel.py, K10 in bounce_kernel.py) sweep the scene with a
+group of lanes (group_sweep).  `group_walk_plain` and `group_sweep_plain`
+are plain models of those schedules for the tests, which hold them to the
+sweep of one thread per ray; nothing on the card path calls them.
 """
 
 from __future__ import annotations
@@ -274,6 +276,24 @@ def group_walk_plain(ray_o, ray_d, sph, bounds, plan, n_pos, lens, chunk: int, g
             counts["near"] += int((ok_all.gather(1, j) & swept)[adm].sum())
             counts["issued"] += int((group * -(-ln // group))[adm].sum())
     return best, bi.to(torch.int32), counts
+
+
+def group_sweep_plain(ray_o, ray_d, sph, group: int) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """A plain model of the dense group sweep (csrc/trace.cuh group_sweep,
+    K10 and K11), `group` lanes per ray over the spheres sph [n, 4]: the
+    group walk's schedule (group_walk_plain) over one chunk of all n
+    spheres with an infinite bound, which every ray sweeps.  Lane q tests
+    spheres q, q + group, ...; each lane keeps its first least t and the
+    group's least t, then least index at that t, wins.  Returns (t [R], idx
+    [R] int32, counts by GROUP_COUNTS: n tests a ray, those with disc >= 0,
+    group x ceil(n / group) slot-test lanes issued a ray)."""
+    r, n = ray_o.shape[0], sph.shape[0]
+    dev = ray_o.device
+    bound = torch.tensor([[0.0, 0.0, 0.0, float("inf")]], dtype=sph.dtype, device=dev)
+    plan = torch.zeros(r, 1, dtype=torch.int64, device=dev)  # every ray: chunk 0, once
+    n_pos = torch.ones(r, dtype=torch.int64, device=dev)
+    return group_walk_plain(ray_o, ray_d, sph, bound, plan, n_pos, torch.tensor([n], device=dev),
+                            n, group)
 
 
 def _lib():

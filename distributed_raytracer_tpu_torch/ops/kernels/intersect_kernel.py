@@ -15,8 +15,9 @@ JAX's winner-only backward (_winner_t :157, _bwd :193): the winning
 sphere's root is re-derived with [R]-sized tensor code and the sphere
 cotangents are summed by index_add_ into n + 1 segments, the misses
 going to the dropped one.  The TPU blocking (rays on lanes, sphere chunks
-as a grid axis, block_rays and chunk) has no counterpart: one thread per
-ray loops over the whole scene.
+as a grid axis, block_rays and chunk) has no counterpart: a group of
+threads per ray sweeps the whole scene (csrc/trace.cuh group_sweep), its
+shape read by `group_shape`.
 """
 
 from __future__ import annotations
@@ -42,10 +43,13 @@ def sphere_pack(centers: torch.Tensor, radii: torch.Tensor) -> torch.Tensor:
     return torch.cat([centers, r2[:, None]], dim=1).contiguous()
 
 
-def closest_hit_plain(ray_o: torch.Tensor, ray_d: torch.Tensor, sph: torch.Tensor
+def closest_hit_plain(ray_o: torch.Tensor, ray_d: torch.Tensor, sph: torch.Tensor, *,
+                      stats: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(t [R], idx [R] int32) of every ray against the packed spheres
-    sph [N, 4]: the dense sweep, _PLAIN_ELEMS / N rays at a time."""
+    sph [N, 4]: the dense sweep, _PLAIN_ELEMS / N rays at a time.  stats,
+    when given, gains the ray x sphere tests whose discriminant is not
+    negative, as closest_hit_cuda counts them."""
     cols = sph.t()
     step = max(1, _PLAIN_ELEMS // max(1, sph.shape[0]))
     ts, idxs = [], []
@@ -53,7 +57,9 @@ def closest_hit_plain(ray_o: torch.Tensor, ray_d: torch.Tensor, sph: torch.Tenso
         ox, oy, oz = ray_o[i:i + step].unbind(-1)
         dx, dy, dz = ray_d[i:i + step].unbind(-1)
         a = dx * dx + dy * dy + dz * dz
-        t, _ = sweep_t(ox, oy, oz, dx, dy, dz, a, 1.0 / a, cols)
+        t, ok = sweep_t(ox, oy, oz, dx, dy, dz, a, 1.0 / a, cols)
+        if stats is not None:
+            stats[:1] += ok.sum().to(stats.device)
         t_c, idx = torch.min(t, dim=1)  # the first minimum
         ts.append(t_c)
         idxs.append(idx.to(torch.int32))
@@ -81,6 +87,14 @@ def _lib():
     lib.closest_hit_launch.argtypes = [p, p, p, i, i, p, p, p]
     lib.closest_hit_launch.restype = i
     return lib
+
+
+def group_shape() -> Tuple[int, int, int]:
+    """(lanes per ray, threads per block, 1 if blocks stage the scene in
+    shared memory (up to 512 spheres) else 0) of the built K11."""
+    shape = (ctypes.c_int * 3)()
+    _lib().closest_hit_shape(shape)
+    return shape[0], shape[1], shape[2]
 
 
 def closest_hit_cuda(ray_o: torch.Tensor, ray_d: torch.Tensor, sph: torch.Tensor, *,

@@ -1,36 +1,44 @@
-"""The group walk of the culled kernels (csrc/trace.cuh group_walk: K14 in
-csrc/fused_bounce.cu, K12/K13 in csrc/culled_intersect.cu) at several
-lanes per ray (G) and block sizes, on one CUDA card.
+"""The group-per-ray kernels of the port at several lanes per ray (G) and
+block sizes, on one CUDA card: the dense sweep (csrc/trace.cuh
+group_sweep: K10 in csrc/fused_bounce.cu, K11 in csrc/intersect.cu) and
+the culled walk (group_walk: K14 in csrc/fused_bounce.cu, K12/K13 in
+csrc/culled_intersect.cu).
 
-    python3 scripts/torch_group_probe.py [--groups 8,16,32] [--threads 128,256,512]
-                                         [--record out.json]
+    python3 scripts/torch_group_probe.py [--kernels dense,culled] [--groups G,...]
+                                         [--threads 128,256,512] [--stage 0,1]
+                                         [--reps 100] [--parent DIR] [--record out.json]
 
 First records full-pool batches of the engines that launch these kernels,
-as chip_smoke.py drives them (tiled ray order, 1 spp): K14 in the culled
-fused engine on bench.py's 8,192-sphere field (1024x576 depth 8, chunks of
-128) and on the RTiOW final scene (1200x675 depth 50), K13 in the
-reference wavefront engine over the culled field; each run's middle batch
-is kept.  Then builds both sources once for each (G, threads) with
--DDR_GROUP and -DDR_GROUP_THREADS into build/group_probe/ (all nvcc
-started together; the package's own library, under build/kernels/, keeps
-its one shape), prints each kernel's registers and spills (-Xptxas -v),
-holds each variant bit for bit against the plain versions on those
-batches, and times it by CUDA events (chip_smoke.kernel_ms: the mean of
---reps launches queued behind a sleep, so that the card runs them back to
-back; beside it chip_smoke.cuda_ms, the same launches queued as the host
-makes them; every variant twice, the second pass in reverse order), with its
-group lane use (slot tests / slot-test lanes issued) and the rate at which
-its groups read the sweep columns (16 B a slot test: a group reads an
-admitted chunk's slots once for its ray).  Last, K13 on the field batch
-with the sweep columns staged in shared memory by persistent blocks
-(scripts/group_probe_staged.cu, G = 32, 1,024 threads a block), beside
-the same G in the package's kernel: if the reads set the pace, the staged
-variant is faster.  With --parent DIR (a checkout of the tree before the
-group walk), builds DIR's two sources as they are (one thread per ray)
-and times parent, change, change, parent on the same batches (K14 on both
-scenes, K12 and K13 on the field; the change is the package's own build),
-each held bit for bit against the plain versions.  Exits with code 2
-without a CUDA card.
+as chip_smoke.py drives them (1 spp): for the dense set, the dense fused
+engine on the RTiOW final scene (1200x675 depth 50, chip_smoke.py's phase
+19), whose middle batch K10 bounces and K11 intersects, and chip_smoke.py's
+16,384 random rays over bench.py's 8,192-sphere field (phase 25) for K11;
+for the culled set, K14 in the culled fused engine (tiled) on the field
+(1024x576 depth 8, chunks of 128) and on the final scene, K13 in the
+reference wavefront engine over the culled field, each run's middle
+batch.  Then builds the sources once for each shape into
+build/group_probe/ (all nvcc started together; the package's own
+libraries, under build/kernels/, keep their one shape each): the dense set
+for each (G, threads, staged) with -DDR_DENSE_GROUP, -DDR_DENSE_THREADS and
+-DDR_DENSE_STAGE (G in 4, 8, 16, 32 by default; staged: the sweep columns
+in shared memory, up to 512 spheres, so not on the field), the culled
+set for each (G, threads) with -DDR_GROUP and -DDR_GROUP_THREADS (G in 8,
+16, 32).  Prints each kernel's registers and spills (-Xptxas -v), holds
+each variant bit for bit against the plain versions on the batches,
+counters included, and times it by CUDA events (chip_smoke.kernel_ms: the
+mean of --reps launches queued behind a sleep, so that the card runs them
+back to back; beside it chip_smoke.cuda_ms, the same launches queued as the
+host makes them; every variant twice, the second pass in reverse order),
+and prints each kernel's variants by their mean time.  The culled set also
+reports its group lane use (slot tests / slot-test lanes issued) and the
+rate at which its groups read the sweep columns, and times K13 on the
+field batch with the sweep columns staged in shared memory by persistent
+blocks (scripts/group_probe_staged.cu, G = 32, 1,024 threads a block)
+beside the same G in the package's kernel.  With --parent DIR (a checkout
+of an earlier tree whose launchers take the same arguments), builds DIR's
+sources as they are and times parent, change, change, parent on the same
+batches (the change is the package's own build), each held bit for bit
+against the plain versions.  Exits with code 2 without a CUDA card.
 """
 
 from __future__ import annotations
@@ -49,80 +57,136 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import cuda_ms, kernel_ms, ptxas_kernels, walk_camera  # noqa: E402
 
-BOUNCE_SEED = 123456
-SOURCES = ("fused_bounce", "culled_intersect")
+SETS = {  # each set's sources, the -D names of its shape, and its default groups
+    "dense": (("fused_bounce", "intersect"), ("DR_DENSE_GROUP", "DR_DENSE_THREADS"), "4,8,16,32"),
+    "culled": (("fused_bounce", "culled_intersect"), ("DR_GROUP", "DR_GROUP_THREADS"), "8,16,32"),
+}
+# each kernel's source and its entry function in the ptxas report
+KERNEL_OF = {"K10": ("fused_bounce", "fused_bounce_kernel"),
+             "K11": ("intersect", "closest_hit_kernel"),
+             "K14": ("fused_bounce", "culled_fused_bounce_kernel"),
+             "K13": ("culled_intersect", "culled_closest_hit_kernel<true>")}
 PROBE_DIR = ROOT / "build" / "group_probe"
 STAGED = ROOT / "scripts" / "group_probe_staged.cu"
+FIELD_RAYS = 16384  # chip_smoke.py phase 25's random rays over the field
 
 
-def build_variants(shapes, parent) -> dict:
-    """{(g, threads): {source: (library path, ptxas entries)}}, the staged
-    K13's under "staged" and, given a parent checkout, its sources' under
-    ("parent", source); every nvcc started together; raises if one fails."""
+def build_variants(shapes, parent, staged_k13: bool) -> dict:
+    """{(set, g, threads, stage): {source: (library path, ptxas entries)}},
+    the staged K13's under "staged" and, given a parent checkout, its
+    sources' under ("parent", source); every nvcc started together; raises
+    if one fails."""
     from distributed_raytracer_tpu_torch.ops.kernels import _build
 
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = [(g, t, src, _build.CSRC / f"{src}.cu") for g, t in shapes for src in SOURCES]
-    jobs.append((32, 1024, "staged", STAGED))
+    jobs = []
+    for key in shapes:
+        kind, g, t, stage = key
+        srcs, (d_group, d_threads), _ = SETS[kind]
+        flags = [f"-D{d_group}={g}", f"-D{d_threads}={t}"]
+        if kind == "dense":
+            flags.append(f"-DDR_DENSE_STAGE={stage}")
+        jobs += [(key, src, _build.CSRC / f"{src}.cu", flags) for src in srcs]
+    if staged_k13:
+        jobs.append(("staged", "staged", STAGED, ["-DDR_GROUP=32", "-DDR_GROUP_THREADS=1024"]))
     if parent:
-        jobs += [(0, 0, f"parent-{src}", Path(parent) / "distributed_raytracer_tpu_torch" / "csrc"
-                  / f"{src}.cu") for src in SOURCES]
-    procs = {}
-    for g, t, src, path in jobs:
-        out = PROBE_DIR / f"lib{src}-G{g}-T{t}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DDR_GROUP={g}", f"-DDR_GROUP_THREADS={t}",
-               "-o", str(out), str(path)]
-        procs[(g, t, src)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                               stderr=subprocess.STDOUT, text=True), out)
+        srcs = sorted({s for kind in {k[0] for k in shapes} for s in SETS[kind][0]})
+        jobs += [(("parent", src), src, Path(parent) / "distributed_raytracer_tpu_torch" / "csrc"
+                  / f"{src}.cu", []) for src in srcs]
+    procs = []
+    for key, src, path, flags in jobs:
+        tag = "-".join(str(x) for x in (key if isinstance(key, tuple) else (key,)))
+        out = PROBE_DIR / f"lib{src}-{tag}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(out), str(path)]
+        procs.append((key, src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True), out))
     built = {}
-    for (g, t, src), (p, out) in procs.items():
+    for key, src, p, out in procs:
         report = p.communicate()[0]
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}.cu at G={g}, {t} threads:\n{report}")
-        if src == "staged" or src.startswith("parent"):
-            built[src] = (out, ptxas_kernels(report))
+            raise RuntimeError(f"nvcc failed for {src}.cu ({key}):\n{report}")
+        if key == "staged" or key[0] == "parent":
+            built[key] = (out, ptxas_kernels(report))
         else:
-            built.setdefault((g, t), {})[src] = (out, ptxas_kernels(report))
+            built.setdefault(key, {})[src] = (out, ptxas_kernels(report))
     return built
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--groups", default="8,16,32")
-    ap.add_argument("--threads", default="128,256,512")
-    ap.add_argument("--reps", type=int, default=100, help="launches timed per variant")
-    ap.add_argument("--parent", default=None, help="a checkout of the tree before the group walk")
-    ap.add_argument("--record", default=None, help="write the numbers to this JSON file")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("torch_group_probe: no CUDA device available", file=sys.stderr)
-        return 2
-    from distributed_raytracer_tpu_torch.models import presets
+def use_libraries(libs: dict) -> None:
+    """Make the package's wrappers launch these libraries ({source: path});
+    an empty dict restores the package's own build."""
     from distributed_raytracer_tpu_torch.ops.kernels import _build
-    from distributed_raytracer_tpu_torch.ops.kernels import culled_bounce_kernel as cb
-    from distributed_raytracer_tpu_torch.ops.kernels import culled_kernel as ck
+
+    for src in ("fused_bounce", "intersect", "culled_intersect"):
+        _build._loaded.pop(src, None)
+    for src, path in libs.items():
+        _build._loaded[src] = ctypes.CDLL(str(path))
+
+
+def same(got, want) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def dense_runs(dev, presets):
+    """[(kernel, batch label, launch(**kw), (the plain version's outputs,
+    its counters), the number of counters)]: K10 on the dense fused
+    engine's middle pool batch of the final scene, K11 on its rays and on
+    the field's random rays."""
+    from distributed_raytracer_tpu_torch.ops.kernels import bounce_kernel as bk
     from distributed_raytracer_tpu_torch.ops.kernels import intersect_kernel as ik
-    from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
     from distributed_raytracer_tpu_torch.render import wavefront
     from distributed_raytracer_tpu_torch.render.progressive import render_progressive
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    print(f"[card] {card}", flush=True)
-    dev = torch.device("cuda")
-    shapes = [(int(g), int(t)) for g in args.groups.split(",") for t in args.threads.split(",")]
-    built = build_variants(shapes, args.parent)
-    staged_lib = built.pop("staged")[0]
-    parent_libs = {src: built.pop(f"parent-{src}") for src in SOURCES if args.parent}
-    for (g, t), libs in built.items():
-        for src, (_, entries) in libs.items():
-            for e in entries:
-                if e["kernel"].startswith("culled"):
-                    print(f"[build] G={g} threads={t} {src}.cu {e['kernel']}: {e['registers']} "
-                          f"registers, spill stores {e['spill_stores']} B, loads "
-                          f"{e['spill_loads']} B", flush=True)
+    final = presets.rtiow_final_scene(seed=0, pad_to=512)
+    real, kept = wavefront.fused_bounce, []
 
-    # --- the engines' middle full-pool batches ---
+    def keep(o, d, live, lane_ray, scene, seed, **kw):
+        kept.append((o, d, live, lane_ray, seed))
+        return real(o, d, live, lane_ray, scene, seed, **kw)
+
+    wavefront.fused_bounce = keep
+    try:
+        render_progressive(final, presets.final_scene_camera(1200), seed=0, spp=1, batch=1,
+                           engine="fused")
+    finally:
+        wavefront.fused_bounce = real
+    o, d, live, lane_ray, seed = kept[len(kept) // 2]
+    fd = final.to(dev)
+    arrays = bk.fused_scene_arrays(fd)
+    sph_f = ik.sphere_pack(fd.centers, fd.radii)
+    field = presets.random_sphere_field(8192, seed=5, extent=30.0).to(dev)
+    sph_w = ik.sphere_pack(field.centers, field.radii)
+    g = torch.Generator().manual_seed(11)  # chip_smoke.py phase 25's rays
+    o_r = ((torch.rand(FIELD_RAYS, 3, generator=g) * 2.0 - 1.0) * 40.0).to(dev)
+    d_r = torch.randn(FIELD_RAYS, 3, generator=g).to(dev)
+
+    def k10(**kw):
+        return bk.fused_bounce_cuda(o, d, live, lane_ray, arrays, seed, **kw)
+
+    st = torch.zeros(4, dtype=torch.int64, device=dev)
+    want10 = (bk.fused_bounce_plain(o, d, live, lane_ray, arrays, seed, stats=st), st)
+    runs = [("K10", "final, dense engine's middle pool batch", k10, want10, 4)]
+    for label, ro, rd, sph in (("final, the same batch's rays", o, d, sph_f),
+                               ("field, 16,384 random rays", o_r, d_r, sph_w)):
+        st = torch.zeros(1, dtype=torch.int64, device=dev)
+        want = (ik.closest_hit_plain(ro, rd, sph, stats=st), st)
+        runs.append(("K11", label, lambda ro=ro, rd=rd, sph=sph, **kw: ik.closest_hit_cuda(
+            ro, rd, sph, **kw), want, 1))
+    torch.cuda.synchronize()
+    return runs
+
+
+def culled_runs(dev, presets):
+    """The culled set's runs (dense_runs' form), and K13's operands for the
+    staged variant: K14 on the culled fused engine's middle pool batches
+    of the field and the final scene, K13 on the reference wavefront
+    engine's middle batch over the culled field."""
+    from distributed_raytracer_tpu_torch.ops.kernels import culled_bounce_kernel as cb
+    from distributed_raytracer_tpu_torch.ops.kernels import culled_kernel as ck
+    from distributed_raytracer_tpu_torch.ops.kernels import intersect_kernel as ik
+    from distributed_raytracer_tpu_torch.render import wavefront
+    from distributed_raytracer_tpu_torch.render.progressive import render_progressive
+
     real = wavefront.culled_fused_bounce
 
     def k14_batch(scene, cam, culled):
@@ -144,17 +208,24 @@ def main() -> int:
     final = presets.rtiow_final_scene(seed=0, pad_to=512)
     culled_w = ck.build_culled_scene(field, chunk=128)
     culled_f = ck.build_culled_scene(final, chunk=128)
-    batches = {"K14 field": (k14_batch(field, walk_camera(presets, 1024), culled_w),
-                             cb.build_culled_pack(culled_w).to(dev)),
-               "K14 final": (k14_batch(final, presets.final_scene_camera(1200), culled_f),
-                             cb.build_culled_pack(culled_f).to(dev))}
+    runs = []
+    for name, scene, cam, culled in (
+            ("field", field, walk_camera(presets, 1024), culled_w),
+            ("final", final, presets.final_scene_camera(1200), culled_f)):
+        b = k14_batch(scene, cam, culled)
+        pack = cb.build_culled_pack(culled).to(dev)
+        st = torch.zeros(4, dtype=torch.int64, device=dev)
+        want = (cb.culled_fused_bounce_plain(*b[:4], pack, b[4], stats=st), st)
+        runs.append(("K14", f"{name}, culled engine's middle pool batch",
+                     lambda b=b, pack=pack, **kw: cb.culled_fused_bounce_cuda(*b[:4], pack, b[4],
+                                                                              **kw), want, 4))
     rays = []
+    fn = ck.make_culled_intersect(culled_w, mode="walk")
 
     def keep_rays(ray_o, ray_d, scene):
         rays.append((ray_o, ray_d))
         return fn(ray_o, ray_d, scene)
 
-    fn = ck.make_culled_intersect(culled_w, mode="walk")
     render_progressive(culled_w.scene, walk_camera(presets, 1024), seed=0, spp=1, batch=1,
                        engine="wavefront", intersect_fn=keep_rays, ray_order="tiled")
     o13, d13 = rays[len(rays) // 2]
@@ -165,63 +236,44 @@ def main() -> int:
                                          torch.from_numpy(culled_w.bounds_r2).to(dev), nb, br)
     k13_args = (o13, d13, sph, ck.culled_bounds(culled_w, dev), order, n_visit, culled_w.chunk,
                 br)
-    want13 = ck.culled_closest_hit_plain(o13, d13, sph, order, culled_w.chunk, br)
-    want14 = {name: cb.culled_fused_bounce_plain(*b[:4], pack, b[4])
-              for name, (b, pack) in batches.items()}
+    # the plain version has no counters; the kernel's are checked on the card tests
+    want13 = (ck.culled_closest_hit_plain(o13, d13, sph, order, culled_w.chunk, br), None)
+    runs.append(("K13", "field, wavefront engine's middle batch",
+                 lambda **kw: ck.culled_closest_hit_walk_cuda(*k13_args, **kw), want13, 5))
     torch.cuda.synchronize()
+    return runs, k13_args
 
-    rows = []
-    order_of_passes = list(built) + list(built)[::-1]
-    for n_pass, (g, t) in enumerate(order_of_passes):
-        libs = built[(g, t)]
-        for src in SOURCES:
-            _build._loaded[src] = ctypes.CDLL(str(libs[src][0]))
-        shape = (cb.group_shape(), ck.group_shape())
-        assert shape == ((g, t), (g, t)), shape
-        runs = [(name, lambda b=b, pack=pack, **kw: cb.culled_fused_bounce_cuda(
-                     *b[:4], pack, b[4], **kw), want14[name])
-                for name, (b, pack) in batches.items()]
-        runs.append(("K13 field", lambda **kw: ck.culled_closest_hit_walk_cuda(*k13_args, **kw),
-                     want13))
-        for name, launch, want in runs:
-            n_stats = 5 if name == "K13 field" else 4
-            stats = torch.zeros(n_stats, dtype=torch.int64, device=dev)
-            issued = torch.zeros(1, dtype=torch.int64, device=dev)
-            got = launch(stats=stats, issued=issued)
-            same = all(torch.equal(x, y) for x, y in zip(got, want))
-            if not same:
-                raise SystemExit(f"{name} at G={g}, {t} threads differs from its plain version")
-            ms = kernel_ms(launch, args.reps)
-            unheld = cuda_ms(launch, args.reps)
-            tests = int(stats[n_stats - 2])
-            use = mk.group_lane_use(tests, int(issued))
-            src = "culled_intersect" if name == "K13 field" else "fused_bounce"
-            regs = [e for e in libs[src][1] if e["kernel"].startswith("culled")
-                    and (src == "fused_bounce" or e["kernel"].endswith("<true>"))][0]
-            rows.append(dict(kernel=name, group=g, threads=t, pass_=n_pass // len(built), ms=ms,
-                             ms_unheld=unheld, tests=tests, issued=int(issued), group_lane_use=use,
-                             sweep_read_gb_per_s=tests * 16 / ms / 1e6,
-                             registers=regs["registers"], spill_stores=regs["spill_stores"]))
-            print(f"[group] {name}: G={g}, {t} threads a block (pass {n_pass // len(built) + 1}): "
-                  f"{ms:.4f} ms per launch ({unheld:.4f} as the host queues them), equal to "
-                  f"plain, {tests:,} slot tests, "
-                  f"{int(issued):,} lanes issued, group lane use {use:.4f}, sweep reads "
-                  f"{tests * 16 / ms / 1e6:.1f} GB/s, {regs['registers']} registers", flush=True)
 
-    # K13 with the sweep columns in shared memory, beside the package's kernel at G = 32
-    lib = ctypes.CDLL(str(staged_lib))
+def check_run(run, dev, issued=None):
+    """Launch a run once with counters; raise unless it equals plain."""
+    kernel, label, launch, (want, want_st), n_stats = run
+    stats = torch.zeros(n_stats, dtype=torch.int64, device=dev)
+    kw = dict(stats=stats) if issued is None else dict(stats=stats, issued=issued)
+    got = launch(**kw)
+    if not same(got, want) or (want_st is not None and not torch.equal(stats, want_st)):
+        raise SystemExit(f"{kernel} ({label}) differs from its plain version")
+    return stats
+
+
+def staged_k13(lib_path, k13_args, want13, built, rows, reps, dev):
+    """K13 with the sweep columns staged in shared memory by persistent
+    blocks, beside the package's kernel at G = 32."""
+    from distributed_raytracer_tpu_torch.ops.kernels import _build
+    from distributed_raytracer_tpu_torch.ops.kernels import culled_kernel as ck
+
+    lib = ctypes.CDLL(str(lib_path))
     lib.staged_walk_grid.argtypes = [ctypes.c_int]
     lib.staged_walk_launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
                                        ctypes.c_int] + [ctypes.c_void_p] * 3
                                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
                                        + [ctypes.c_int, ctypes.c_void_p])
-    n_slots = sph.shape[0]
+    o_, d_, sph_, bounds_, order_, n_visit_, chunk_, br_ = k13_args
+    n_slots = sph_.shape[0]
     grid = lib.staged_walk_grid(n_slots)
     if grid < 1:
         raise SystemExit(f"staged K13: no grid (CUDA error {-grid})")
-    t_s = torch.empty(o13.shape[0], dtype=torch.float32, device=dev)
-    i_s = torch.empty(o13.shape[0], dtype=torch.int32, device=dev)
-    o_, d_, sph_, bounds_, order_, n_visit_, chunk_, br_ = k13_args
+    t_s = torch.empty(o_.shape[0], dtype=torch.float32, device=dev)
+    i_s = torch.empty(o_.shape[0], dtype=torch.int32, device=dev)
 
     def staged():
         err = lib.staged_walk_launch(o_.data_ptr(), d_.data_ptr(), o_.shape[0], sph_.data_ptr(),
@@ -235,71 +287,135 @@ def main() -> int:
     torch.cuda.synchronize()
     if not (torch.equal(t_s, want13[0]) and torch.equal(i_s, want13[1])):
         raise SystemExit("staged K13 differs from its plain version")
-    for (g, t), libs in built.items():
-        if g != 32:
+    for (kind, g, t, _), libs in built.items():
+        if kind != "culled" or g != 32:
             continue
-        for src in SOURCES:
-            _build._loaded[src] = ctypes.CDLL(str(libs[src][0]))
+        use_libraries({src: path for src, (path, _) in libs.items()})
         for label, fn in ((f"package, G=32, {t} threads", lambda: ck.culled_closest_hit_walk_cuda(
                 *k13_args)), (f"staged in shared memory, G=32, 1024 threads, grid {grid}",
                               staged)) * 2:
-            ms = kernel_ms(fn, args.reps)
-            rows.append(dict(kernel="K13 field", variant=label, ms=ms))
+            ms = kernel_ms(fn, reps)
+            rows.append(dict(kernel="K13", variant=label, ms=ms))
             print(f"[staged] K13 field, {label}: {ms:.4f} ms per launch (equal to plain)",
                   flush=True)
 
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", default="dense,culled", help="the sets to probe: dense, culled")
+    ap.add_argument("--groups", default=None, help="lanes per ray (default: the set's own)")
+    ap.add_argument("--threads", default="128,256,512")
+    ap.add_argument("--stage", default="0,1", help="the dense set's staging, 0 and/or 1")
+    ap.add_argument("--reps", type=int, default=100, help="launches timed per variant")
+    ap.add_argument("--parent", default=None, help="a checkout of an earlier tree")
+    ap.add_argument("--record", default=None, help="write the numbers to this JSON file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_group_probe: no CUDA device available", file=sys.stderr)
+        return 2
+    from distributed_raytracer_tpu_torch.models import presets
+    from distributed_raytracer_tpu_torch.ops.kernels import bounce_kernel as bk
+    from distributed_raytracer_tpu_torch.ops.kernels import culled_bounce_kernel as cb
+    from distributed_raytracer_tpu_torch.ops.kernels import culled_kernel as ck
+    from distributed_raytracer_tpu_torch.ops.kernels import intersect_kernel as ik
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[card] {card}", flush=True)
+    dev = torch.device("cuda")
+    kinds = args.kernels.split(",")
+    shapes = [(kind, int(g), int(t), int(s) if kind == "dense" else 0)
+              for kind in kinds for g in (args.groups or SETS[kind][2]).split(",")
+              for t in args.threads.split(",")
+              for s in (args.stage.split(",") if kind == "dense" else ["0"])]
+    built = build_variants(shapes, args.parent, "culled" in kinds)
+    staged_lib = built.pop("staged", (None,))[0]
+    parent_libs = {key[1]: built.pop(key)[0] for key in list(built) if key[0] == "parent"}
+    for (kind, g, t, s), libs in built.items():
+        for src, (_, entries) in libs.items():
+            for e in entries:
+                print(f"[build] {kind} G={g} threads={t}{f' staged={s}' if kind == 'dense' else ''}"
+                      f" {src}.cu {e['kernel']}: {e['registers']} registers, spill stores "
+                      f"{e['spill_stores']} B, loads {e['spill_loads']} B, {e['smem']} B smem",
+                      flush=True)
+
+    runs = {"dense": dense_runs(dev, presets)} if "dense" in kinds else {}
+    if "culled" in kinds:
+        runs["culled"], k13_args = culled_runs(dev, presets)
+    shape_of = {"K10": bk.group_shape, "K11": ik.group_shape, "K14": cb.group_shape,
+                "K13": ck.group_shape}
+
+    rows = []
+    passes = list(built) + list(built)[::-1]
+    for n_pass, key in enumerate(passes):
+        kind, g, t, s = key
+        libs = built[key]
+        use_libraries({src: path for src, (path, _) in libs.items()})
+        for run in runs[kind]:
+            name, label, launch = run[:3]
+            if kind == "dense" and s and "field" in label:
+                continue  # staging applies up to 512 spheres
+            shape = shape_of[name]()
+            assert shape[:2] == (g, t) and (kind != "dense" or shape[2] == s), (name, shape, key)
+            issued = torch.zeros(1, dtype=torch.int64, device=dev) if kind == "culled" else None
+            stats = check_run(run, dev, issued)
+            ms = kernel_ms(launch, args.reps)
+            unheld = cuda_ms(launch, args.reps)
+            src, entry = KERNEL_OF[name]
+            regs = [e for e in libs[src][1] if e["kernel"].startswith(entry) and (
+                kind != "dense" or e["kernel"].endswith("<true>" if s and "final" in label
+                                                        else "<false>"))]
+            row = dict(kernel=name, batch=label, set=kind, group=g, threads=t, staged=s,
+                       pass_=n_pass // len(built), ms=ms, ms_unheld=unheld,
+                       registers=[e["registers"] for e in regs],
+                       spill_stores=[e["spill_stores"] for e in regs])
+            extra = ""
+            if kind == "culled":
+                tests = int(stats[len(stats) - 2])
+                use = mk.group_lane_use(tests, int(issued))
+                row.update(tests=tests, issued=int(issued), group_lane_use=use,
+                           sweep_read_gb_per_s=tests * 16 / ms / 1e6)
+                extra = (f", group lane use {use:.4f}, sweep reads "
+                         f"{tests * 16 / ms / 1e6:.1f} GB/s")
+            rows.append(row)
+            print(f"[group] {name} {label}: G={g}, {t} threads"
+                  f"{f', staged {s}' if kind == 'dense' else ''} (pass "
+                  f"{n_pass // len(built) + 1}): {ms:.4f} ms per launch ({unheld:.4f} as the host "
+                  f"queues them), equal to plain{extra}", flush=True)
+
+    for name, label in sorted({(r["kernel"], r["batch"]) for r in rows}):
+        means = {}
+        for r in rows:
+            if (r["kernel"], r["batch"]) == (name, label):
+                means.setdefault((r["group"], r["threads"], r["staged"]), []).append(r["ms"])
+        order = sorted(means, key=lambda k: sum(means[k]) / len(means[k]))
+        print(f"[best] {name} {label}: " + ", ".join(
+            f"G={g} x {t}{f' staged {s}' if name in ('K10', 'K11') else ''} "
+            f"{sum(means[(g, t, s)]) / len(means[(g, t, s)]):.4f}" for g, t, s in order),
+            flush=True)
+
+    if staged_lib is not None:
+        staged_k13(staged_lib, k13_args, runs["culled"][-1][3][0], built, rows, args.reps, dev)
+
     if args.parent:  # parent, change, change, parent on the same batches
-        from distributed_raytracer_tpu_torch.ops.kernels import bounce_kernel as bk
-
-        for src in SOURCES:
-            _build._loaded.pop(src, None)  # the change: the package's own build
-        print(f"[compare] the change's group shape {cb.group_shape()} (K14), {ck.group_shape()} "
-              f"(K12/K13)", flush=True)
-        lib_f = ctypes.CDLL(str(parent_libs["fused_bounce"][0]))
-        lib_c = ctypes.CDLL(str(parent_libs["culled_intersect"][0]))
-        p_, i_ = ctypes.c_void_p, ctypes.c_int
-        lib_f.culled_fused_bounce_launch.argtypes = [p_, p_, p_, p_, i_, i_, i_] + bk.LANE_ARGTYPES
-        lib_c.culled_closest_hit_launch.argtypes = [p_, p_, i_, p_, p_, p_, p_, i_, i_, i_, i_, p_,
-                                                    p_, p_, p_]
-
-        def parent_k14(b, pack):
-            o, d, live, rid, seed = b
-            out = bk.empty_out(o.shape[0], dev)
-            _build.check(lib_f.culled_fused_bounce_launch(
-                pack.scene_pack.data_ptr(), pack.attrs.data_ptr(), pack.bounds.data_ptr(),
-                pack.chunk_len.data_ptr(), pack.n_slots, pack.chunk, pack.n_chunks,
-                *bk.lane_args(o, d, live, rid, None, seed, o.shape[0], out, None)), "parent K14")
-            return out
-
-        def parent_culled(walk):
-            o, d, sph_c, bounds_c, order_c, n_visit_c, chunk_c, br_c = k13_args
-            t_c = torch.empty(o.shape[0], dtype=torch.float32, device=dev)
-            i_c = torch.empty(o.shape[0], dtype=torch.int32, device=dev)
-            _build.check(lib_c.culled_closest_hit_launch(
-                o.data_ptr(), d.data_ptr(), o.shape[0], sph_c.data_ptr(), bounds_c.data_ptr(),
-                order_c.data_ptr(), n_visit_c.data_ptr(), order_c.shape[1], chunk_c, br_c,
-                int(walk), t_c.data_ptr(), i_c.data_ptr(), None,
-                torch.cuda.current_stream().cuda_stream), "parent K12/K13")
-            return t_c, i_c
-
-        pairs = [(name, lambda b=b, pack=pack: parent_k14(b, pack),
-                  lambda b=b, pack=pack: cb.culled_fused_bounce_cuda(*b[:4], pack, b[4]),
-                  want14[name]) for name, (b, pack) in batches.items()]
-        pairs += [(f"K1{3 if walk else 2} field", lambda walk=walk: parent_culled(walk),
-                   lambda walk=walk: (ck.culled_closest_hit_walk_cuda if walk
-                                      else ck.culled_closest_hit_cuda)(*k13_args), want13)
-                  for walk in (False, True)]
-        for name, parent_fn, change_fn, want in pairs:
-            times = []
-            for label, fn in (("parent", parent_fn), ("change", change_fn),
-                              ("change", change_fn), ("parent", parent_fn)):
-                got = fn()
-                if not all(torch.equal(x, y) for x, y in zip(got, want)):
-                    raise SystemExit(f"{name}: the {label} differs from the plain version")
-                times.append((label, kernel_ms(fn, args.reps)))
-            rows.append(dict(kernel=name, compare=times))
-            print(f"[compare] {name}: " + ", ".join(f"{label} {ms:.4f}" for label, ms in times)
-                  + " ms per launch (each equal to plain)", flush=True)
+        parent = parent_libs
+        use_libraries({})
+        print(f"[compare] the change's shapes: K10 {bk.group_shape()}, K11 {ik.group_shape()}, "
+              f"K14 {cb.group_shape()}, K12/K13 {ck.group_shape()}", flush=True)
+        for kind in kinds:
+            for run in runs[kind]:
+                name, label, launch = run[:3]
+                times = []
+                for side in ("parent", "change", "change", "parent"):
+                    use_libraries(parent if side == "parent" else {})
+                    check_run(run, dev)
+                    times.append((side, kernel_ms(launch, args.reps)))
+                rows.append(dict(kernel=name, batch=label, compare=times))
+                print(f"[compare] {name} {label}: " + ", ".join(
+                    f"{side} {ms:.4f}" for side, ms in times) + " ms per launch (each equal to "
+                    "plain, counters included)", flush=True)
+        use_libraries({})
     if args.record:
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(dict(card=card, rows=rows), indent=1))

@@ -481,6 +481,92 @@ def test_culled_closest_hit_group_walk_on_card(card, which, mode):
     assert int(issued) == n["issued"]
 
 
+# --- the dense group sweep (csrc/trace.cuh group_sweep): K10 and K11 run
+# the built G lanes per ray.  Held bit for bit to their plain versions,
+# counters included, on lane counts that fill no whole block (and, at
+# G < 32, no whole warp of groups), on both of K10's instantiations (the
+# scene staged up to 512 spheres, read from global memory above) and on
+# the synthetic tie scene of tests/test_torch_dense_group.py ---
+
+
+def _dense_scene(which, card):
+    """(scene, rays o, d) on the card: the padded final scene with 4,001
+    rays, a 601-sphere field with 4,001, bench.py's 8,193-sphere field
+    with 3,001 random rays, or the 301-sphere tie scene with its 333."""
+    if which == "final512":
+        return presets.rtiow_final_scene(pad_to=512), _lanes(4001, 8, card)[:2]
+    if which == "field600":
+        scene = presets.random_sphere_field(600, seed=7, extent=12.0)
+        return scene, _lanes(4001, 9, card, center=(0.0, 6.0, 25.0), spread=0.3)[:2]
+    if which == "field8192":
+        g = torch.Generator().manual_seed(12)
+        o = ((torch.rand(3001, 3, generator=g) * 2.0 - 1.0) * 40.0).to(card)
+        d = torch.randn(3001, 3, generator=g).to(card)
+        return presets.random_sphere_field(8192, seed=5, extent=30.0), (o, d)
+    from test_torch_dense_group import _arrays, _rays
+
+    arrays = _arrays()
+    return Scene.from_numpy(arrays, "cpu"), tuple(torch.from_numpy(x).to(card)
+                                                  for x in _rays(arrays))
+
+
+@pytest.mark.parametrize("which", ["final512", "field600", "tie301"])
+def test_fused_bounce_group_sweep_on_card(card, which):
+    """K10 at its built shape against its plain version (nine outputs and
+    the four counters, with hash draws and with handed-in draws), every
+    third lane inactive; its winners are the schedule model's at the
+    kernel's G."""
+    scene, (o, d) = _dense_scene(which, card)
+    r = o.shape[0]
+    act = (torch.arange(r) % 3 != 2).to(card)
+    rid = (torch.arange(r, dtype=torch.int32) * 7 + 13).to(card)
+    g, threads, staged = bk.group_shape()
+    assert 1 <= g <= 32 and threads % 32 == 0 and staged in (0, 1)
+    arrays = bk.fused_scene_arrays(scene.to(card))
+    st_k, st_p = (torch.zeros(4, dtype=torch.int64, device=card) for _ in range(2))
+    before = bk.fused_bounce_cuda.launches
+    got = bk.fused_bounce(o, d, act, rid, arrays, 86420, stats=st_k)
+    assert bk.fused_bounce_cuda.launches == before + 1
+    want = bk.fused_bounce_plain(o, d, act, rid, arrays, 86420, stats=st_p)
+    sc = scene.to(card)
+    _, idx_m, n = ck.group_sweep_plain(o, d, ik.sphere_pack(sc.centers, sc.radii), g)
+    torch.cuda.synchronize()
+    _assert_same_bounce(got, want)
+    assert torch.equal(st_k, st_p)
+    assert torch.equal(got.idx, idx_m)
+    assert st_k.tolist() == [r, r, n["tests"], n["near"]]
+    draws = torch.rand(5, r, generator=torch.Generator().manual_seed(3)).clamp(1e-7).to(card)
+    _assert_same_bounce(bk.fused_bounce(o, d, act, rid, arrays, 1, draws=draws),
+                        bk.fused_bounce_plain(o, d, act, rid, arrays, 1, draws=draws))
+
+
+@pytest.mark.parametrize("which", ["final512", "field8192", "tie301"])
+def test_closest_hit_group_sweep_on_card(card, which):
+    """K11 at its built shape against its plain version on an odd ray
+    count: t, idx and the tests with disc >= 0 bit for bit, equal to the
+    schedule model's at the kernel's G; the lower twin wins the exact
+    ties of the tie scene."""
+    scene, (o, d) = _dense_scene(which, card)
+    sc = scene.to(card)
+    sph = ik.sphere_pack(sc.centers, sc.radii)
+    g, threads, _ = ik.group_shape()
+    assert 1 <= g <= 32 and threads % 32 == 0
+    st_k, st_p = (torch.zeros(1, dtype=torch.int64, device=card) for _ in range(2))
+    before = ik.closest_hit_cuda.launches
+    t, idx = ik.closest_hit_cuda(o, d, sph, stats=st_k)
+    assert ik.closest_hit_cuda.launches == before + 1
+    t_p, idx_p = ik.closest_hit_plain(o, d, sph, stats=st_p)
+    t_m, idx_m, n = ck.group_sweep_plain(o, d, sph, g)
+    torch.cuda.synchronize()
+    assert torch.equal(t, t_p) and torch.equal(idx, idx_p)
+    assert torch.equal(t_m, t_p) and torch.equal(idx_m, idx_p)
+    assert int(st_k) == int(st_p) == n["near"]
+    if which == "tie301":
+        from test_torch_dense_group import TWINS
+
+        assert int((idx == TWINS[0]).sum()) >= 10 and not bool((idx == TWINS[1]).any())
+
+
 def test_fused_engine_on_card(card):
     """The fused engine on the card: with a pool holding every ray it
     equals the mega engine (dense, K5) and the walk (culled, K9) bit for
