@@ -1254,19 +1254,15 @@ def engine_ops_per_block(dev, scene, cam, culled=None) -> float:
     return Count.ops / (len(rec.inputs) / 2)
 
 
-def log_dense_shape(name: str, shape, entries: list, kernel: str, pool: int) -> None:
+def log_dense_shape(name: str, shape, reads: str, pool: int) -> None:
     """Log a dense group sweep's (K10, K11) launch shape, as the built
-    library reports it, and its kernels' registers and spills from the
-    nvcc -Xptxas -v report (entries, ptxas_kernels' of its source)."""
-    g, threads, staged = shape
+    library reports it, with the blocks and warps per SM of a pool (its
+    registers and spills are phase 1's [build] lines)."""
+    g, threads = shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    regs = "; ".join(f"{e['kernel']} {e['registers']} registers, spill stores "
-                     f"{e['spill_stores']} B, loads {e['spill_loads']} B, {e['smem']} B smem"
-                     for e in entries if e["kernel"].startswith(kernel))
     log(f"[dense] {name}'s group sweep: {g} lanes per ray, blocks of {threads} threads, scene "
-        f"{'staged in shared memory' if staged else 'read from global memory'}; a pool of "
-        f"{pool:,} launches {-(-pool * g // threads):,} blocks, {pool * g / 32 / sms:.0f} warps "
-        f"per SM ({sms} SMs); {regs or 'no ptxas report kept beside the library'}")
+        f"{reads}; a pool of {pool:,} launches {-(-pool * g // threads):,} blocks, "
+        f"{pool * g / 32 / sms:.0f} warps per SM ({sms} SMs)")
 
 
 def bounce_cost(stats, n_live: int, finite_chunks: int, scene_bytes: int) -> dict:
@@ -1283,7 +1279,7 @@ def bounce_cost(stats, n_live: int, finite_chunks: int, scene_bytes: int) -> dic
                 bytes=lanes * LANE_BYTES + scene_bytes)
 
 
-def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float, ptxas: dict) -> dict:
+def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float) -> dict:
     """Phases 19-23: the fused wavefront engine.  render_progressive
     (engine="fused") at full width, dense (K10) on the final scene and
     culled (K14) on it and on the 8,192-sphere field, each run wrapped to
@@ -1402,8 +1398,8 @@ def check_fused_path(dev, presets, final, cam_main, k5_main, peak: float, ptxas:
     live_final = int((final.radii > 0).sum())
 
     # --- phase 19: dense fused engine at the main path, then K10 against plain ---
-    log_dense_shape("K10", bk.group_shape(), ptxas["fused_bounce"], "fused_bounce_kernel",
-                    DEFAULT_POOL)
+    log_dense_shape("K10", bk.group_shape(), "staged in shared memory up to 512 spheres, read "
+                    "from global memory above", DEFAULT_POOL)
     arrays = bk.fused_scene_arrays(final.to(dev))
     k10_pair = (lambda *a, **k: bk.fused_bounce_cuda(*a[:4], arrays, *a[4:], **k),
                 lambda *a, **k: bk.fused_bounce_plain(*a[:4], arrays, *a[4:], **k))
@@ -1592,7 +1588,7 @@ def culled_cost(stats, n_chunks: int, sph_rows: int) -> dict:
                 flops=flops, bytes=rays * 32 + sph_rows * 16 + n_chunks * 20)
 
 
-def check_reference_path(dev, presets, final, cam_main, peak: float, ptxas: dict) -> dict:
+def check_reference_path(dev, presets, final, cam_main, peak: float) -> dict:
     """Phases 24-29: the reference bounce and its two engines, with the
     last three TPU kernels.  K11 (csrc/intersect.cu) against its plain
     version on a pool batch of the wavefront engine on the final scene and
@@ -1648,8 +1644,7 @@ def check_reference_path(dev, presets, final, cam_main, peak: float, ptxas: dict
                     launches=launches, tag=state.engine), rec
 
     # --- phase 24: the wavefront engine with K11 at the main path ---
-    log_dense_shape("K11", ik.group_shape(), ptxas["intersect"], "closest_hit_kernel",
-                    wf.DEFAULT_POOL)
+    log_dense_shape("K11", ik.group_shape(), "read from global memory", wf.DEFAULT_POOL)
     final_dev = final.to(dev)
     sph_f = ik.sphere_pack(final_dev.centers, final_dev.radii)
     live_f = int((final.radii > 0).sum())
@@ -1995,10 +1990,10 @@ def main() -> int:
     # K8 with ray grads) ---
     rays = check_ray_pose_path(dev, final, cam_main)
     # --- phases 19-23: the fused wavefront engine (K10, K14) ---
-    fused = check_fused_path(dev, presets, final, cam_main, k, peak, ptxas)
+    fused = check_fused_path(dev, presets, final, cam_main, k, peak)
     # --- phases 24-29: the reference bounce, its scan and wavefront engines
     # (K11, K12, K13) ---
-    ref = check_reference_path(dev, presets, final, cam_main, peak, ptxas)
+    ref = check_reference_path(dev, presets, final, cam_main, peak)
 
     # --- phase 9: the kernel line, then the device line last ---
     # K5 at the main-path shape traced the rays K6 recorded (sample 0, the

@@ -7,8 +7,8 @@
 //   K10 distributed_raytracer_tpu/ops/pallas/bounce_kernel.py::
 //     _bounce_kernel (:306; pallas_call :529 in fused_bounce_rows :464):
 //     the dense scene, every sphere swept.  Up to MAX_SPHERES spheres a
-//     block stages its sweep columns in shared memory (DR_DENSE_STAGE);
-//     above, the threads read them from global memory (L2-resident).
+//     block stages its sweep columns in shared memory; above, the threads
+//     read them from global memory (L2-resident).
 //   K14 distributed_raytracer_tpu/ops/pallas/culled_bounce_kernel.py::
 //     _culled_bounce_kernel (:136; pallas_call :355 in
 //     _culled_fused_bounce_impl :305): the culled scene, walked chunk by
@@ -87,9 +87,6 @@
 #endif
 #ifndef DR_DENSE_THREADS
 #define DR_DENSE_THREADS 256
-#endif
-#ifndef DR_DENSE_STAGE
-#define DR_DENSE_STAGE 1
 #endif
 
 #include "trace.cuh"
@@ -278,7 +275,7 @@ extern "C" int fused_bounce_launch(const float* sph, const float* attrs, int n,
                         idx, hit, ruv, u);
   const int blocks = (R * DR_DENSE_GROUP + DR_DENSE_THREADS - 1) / DR_DENSE_THREADS;
   const float4* s = reinterpret_cast<const float4*>(sph);
-  if (DR_DENSE_STAGE && n <= MAX_SPHERES) {
+  if (n <= MAX_SPHERES) {
     fused_bounce_kernel<true><<<blocks, DR_DENSE_THREADS, 0, (cudaStream_t)stream>>>(
         s, attrs, n, L, stats);
   } else {
@@ -316,9 +313,8 @@ extern "C" void culled_fused_bounce_shape(int* shape) {
   shape[1] = DR_GROUP_THREADS;
 }
 
-// K10's launch shape: lanes (threads) per ray, threads per block, staged.
+// K10's launch shape: lanes (threads) per ray, threads per block.
 extern "C" void fused_bounce_shape(int* shape) {
   shape[0] = DR_DENSE_GROUP;
   shape[1] = DR_DENSE_THREADS;
-  shape[2] = DR_DENSE_STAGE;
 }

@@ -19,12 +19,12 @@
 // did (about four warps of each SM, each thread's chain of dependent
 // sphere tests run at full latency), and a lane's chain is n / G tests
 // long.  The lanes read the sweep columns from global memory (L1/L2-
-// resident: 8 KB at 512 spheres, 131 KB at 8,193); DR_DENSE_STAGE would
-// stage them in shared memory up to MAX_SPHERES spheres.  The shape, 16
-// lanes a ray in blocks of 512 threads, unstaged, is the fastest that
+// resident: 8 KB at 512 spheres, 131 KB at 8,193).  The shape, 16 lanes a
+// ray in blocks of 512 threads, is the fastest that
 // scripts/torch_group_probe.py found on the reference engine's pool batch
-// and on 16,384 random rays over the 8,192-sphere field (PERF.md section
-// 6).  The group's first thread writes t and idx.
+// and on 16,384 random rays over the 8,192-sphere field, where staging the
+// columns in shared memory (scripts/group_probe_dense.cu) was no faster
+// (PERF.md section 6).  The group's first thread writes t and idx.
 //
 // Bound: FP32 throughput, 18 operations a live ray x sphere test and 8
 // more when the discriminant is not negative (chip_smoke.py counts them);
@@ -45,23 +45,15 @@
 #ifndef DR_DENSE_THREADS
 #define DR_DENSE_THREADS 512
 #endif
-#ifndef DR_DENSE_STAGE
-#define DR_DENSE_STAGE 0
-#endif
 
 #include "trace.cuh"
 
-// STAGED: the sweep columns (n <= MAX_SPHERES) staged in shared memory.
-template <bool STAGED>
+// DR_DENSE_GROUP consecutive threads sweep ray thread / DR_DENSE_GROUP
+// over the n spheres; counts the tests with disc >= 0 into *stats.
 __global__ void __launch_bounds__(DR_DENSE_THREADS)
 closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const float4* __restrict__ sph, int n, int R, float* __restrict__ t_out,
                    int* __restrict__ idx_out, unsigned long long* __restrict__ stats) {
-  __shared__ float4 s_sph[STAGED ? MAX_SPHERES : 1];
-  if (STAGED) {
-    for (int j = threadIdx.x; j < n; j += DR_DENSE_THREADS) s_sph[j] = sph[j];
-    __syncthreads();
-  }
   const int i = (blockIdx.x * DR_DENSE_THREADS + threadIdx.x) / DR_DENSE_GROUP;
   unsigned long long near = 0;
   if (i < R) {
@@ -69,8 +61,8 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
     const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
     const float a = dx * dx + dy * dy + dz * dz;
     int bi;
-    const float t = group_sweep<DR_DENSE_GROUP>(STAGED ? s_sph : sph, 0, n, ox, oy, oz, dx, dy,
-                                                dz, a, 1.0f / a, &bi, &near);
+    const float t = group_sweep<DR_DENSE_GROUP>(sph, 0, n, ox, oy, oz, dx, dy, dz, a, 1.0f / a,
+                                                &bi, &near);
     if ((threadIdx.x & (DR_DENSE_GROUP - 1)) == 0) {
       t_out[i] = t;
       idx_out[i] = bi;
@@ -86,20 +78,13 @@ extern "C" int closest_hit_launch(const float* o, const float* d, const float* s
     return (int)cudaErrorInvalidValue;
   }
   const int blocks = (R * DR_DENSE_GROUP + DR_DENSE_THREADS - 1) / DR_DENSE_THREADS;
-  const float4* s = reinterpret_cast<const float4*>(sph);
-  if (DR_DENSE_STAGE && n <= MAX_SPHERES) {
-    closest_hit_kernel<true><<<blocks, DR_DENSE_THREADS, 0, (cudaStream_t)stream>>>(
-        o, d, s, n, R, t_out, idx_out, stats);
-  } else {
-    closest_hit_kernel<false><<<blocks, DR_DENSE_THREADS, 0, (cudaStream_t)stream>>>(
-        o, d, s, n, R, t_out, idx_out, stats);
-  }
+  closest_hit_kernel<<<blocks, DR_DENSE_THREADS, 0, (cudaStream_t)stream>>>(
+      o, d, reinterpret_cast<const float4*>(sph), n, R, t_out, idx_out, stats);
   return (int)cudaGetLastError();
 }
 
-// The launch shape: lanes (threads) per ray, threads per block, staged.
+// The launch shape: lanes (threads) per ray, threads per block.
 extern "C" void closest_hit_shape(int* shape) {
   shape[0] = DR_DENSE_GROUP;
   shape[1] = DR_DENSE_THREADS;
-  shape[2] = DR_DENSE_STAGE;
 }

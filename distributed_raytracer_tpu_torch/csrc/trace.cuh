@@ -200,10 +200,8 @@ static_assert(DR_GROUP >= 1 && DR_GROUP <= 32 && (DR_GROUP & (DR_GROUP - 1)) == 
 static_assert(DR_GROUP_THREADS % 32 == 0, "DR_GROUP_THREADS must be whole warps");
 
 // The dense sweeps' launch shape (DR_DENSE_GROUP lanes per ray,
-// DR_DENSE_THREADS threads per block, and DR_DENSE_STAGE: whether a block
-// of a scene of up to MAX_SPHERES spheres stages its sweep columns in
-// shared memory) is set by each of their sources, K10's
-// (csrc/fused_bounce.cu) and K11's (csrc/intersect.cu), before it
+// DR_DENSE_THREADS threads per block) is set by each of their sources,
+// K10's (csrc/fused_bounce.cu) and K11's (csrc/intersect.cu), before it
 // includes this file.
 #ifdef DR_DENSE_GROUP
 static_assert(DR_DENSE_THREADS % 32 == 0, "DR_DENSE_THREADS must be whole warps");

@@ -53,32 +53,29 @@ def _library_path(name: str) -> Path:
 def build(*names: str) -> Dict[str, str]:
     """Compile `csrc/<name>.cu` for each name not built already, one nvcc
     per source, all started together.  Returns each name's ptxas report
-    (the registers and shared memory of its kernels), kept beside the
-    library for a later call; raises if any nvcc fails."""
+    (the registers and shared memory of its kernels), empty when the
+    library was already built; raises if any nvcc fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    reports = {}
     for name in names:
         out = _library_path(name)
         if out.exists():
-            report = out.with_suffix(".ptxas")
-            reports[name] = report.read_text() if report.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
+    reports = {name: "" for name in names}
     failed = []
     for name, (p, tmp, out) in procs.items():
         reports[name] = p.communicate()[0]
         if p.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu (exit {p.returncode}):\n{reports[name]}")
         else:
-            out.with_suffix(".ptxas").write_text(reports[name])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: reports[name] for name in names}
+    return reports
 
 
 def load(name: str) -> ctypes.CDLL:

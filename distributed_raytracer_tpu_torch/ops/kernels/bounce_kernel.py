@@ -173,12 +173,11 @@ def _lib():
     return lib
 
 
-def group_shape() -> Tuple[int, int, int]:
-    """(lanes per pool lane, threads per block, 1 if blocks stage the
-    scene in shared memory (up to 512 spheres) else 0) of the built K10."""
-    shape = (ctypes.c_int * 3)()
+def group_shape() -> Tuple[int, int]:
+    """(lanes per pool lane, threads per block) of the built K10."""
+    shape = (ctypes.c_int * 2)()
     _lib().fused_bounce_shape(shape)
-    return shape[0], shape[1], shape[2]
+    return shape[0], shape[1]
 
 
 def fused_bounce_cuda(ray_o, ray_d, active, ray_id, scene_arrays, seed: int, *,

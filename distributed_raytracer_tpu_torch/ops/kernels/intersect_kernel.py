@@ -89,12 +89,11 @@ def _lib():
     return lib
 
 
-def group_shape() -> Tuple[int, int, int]:
-    """(lanes per ray, threads per block, 1 if blocks stage the scene in
-    shared memory (up to 512 spheres) else 0) of the built K11."""
-    shape = (ctypes.c_int * 3)()
+def group_shape() -> Tuple[int, int]:
+    """(lanes per ray, threads per block) of the built K11."""
+    shape = (ctypes.c_int * 2)()
     _lib().closest_hit_shape(shape)
-    return shape[0], shape[1], shape[2]
+    return shape[0], shape[1]
 
 
 def closest_hit_cuda(ray_o: torch.Tensor, ray_d: torch.Tensor, sph: torch.Tensor, *,

@@ -19,11 +19,15 @@ reference wavefront engine over the culled field, each run's middle
 batch.  Then builds the sources once for each shape into
 build/group_probe/ (all nvcc started together; the package's own
 libraries, under build/kernels/, keep their one shape each): the dense set
-for each (G, threads, staged) with -DDR_DENSE_GROUP, -DDR_DENSE_THREADS and
--DDR_DENSE_STAGE (G in 4, 8, 16, 32 by default; staged: the sweep columns
-in shared memory, up to 512 spheres, so not on the field), the culled
-set for each (G, threads) with -DDR_GROUP and -DDR_GROUP_THREADS (G in 8,
-16, 32).  Prints each kernel's registers and spills (-Xptxas -v), holds
+for each (G, threads) with -DDR_DENSE_GROUP and -DDR_DENSE_THREADS (G in
+4, 8, 16, 32 by default), with scripts/group_probe_dense.cu beside it,
+which holds the arm of each dense kernel that the package does not launch
+up to 512 spheres (K10 reading the sweep columns from global memory, K11
+staging them in shared memory), so that each runs staged (1) and not (0)
+on the final scene (the field's 8,193 spheres fit no block: there K10
+and K11 read global memory); the culled set for each (G, threads) with
+-DDR_GROUP and -DDR_GROUP_THREADS (G in 8, 16, 32).  Prints each kernel's
+registers and spills (-Xptxas -v), holds
 each variant bit for bit against the plain versions on the batches,
 counters included, and times it by CUDA events (chip_smoke.kernel_ms: the
 mean of --reps launches queued behind a sleep, so that the card runs them
@@ -62,31 +66,35 @@ SETS = {  # each set's sources, the -D names of its shape, and its default group
     "culled": (("fused_bounce", "culled_intersect"), ("DR_GROUP", "DR_GROUP_THREADS"), "8,16,32"),
 }
 # each kernel's source and its entry function in the ptxas report
-KERNEL_OF = {"K10": ("fused_bounce", "fused_bounce_kernel"),
-             "K11": ("intersect", "closest_hit_kernel"),
-             "K14": ("fused_bounce", "culled_fused_bounce_kernel"),
-             "K13": ("culled_intersect", "culled_closest_hit_kernel<true>")}
+# (kernel, staged): its source and its entry function in the ptxas report
+KERNEL_OF = {("K10", 1): ("fused_bounce", "fused_bounce_kernel<true>"),
+             ("K10", 0): ("fused_bounce", "fused_bounce_kernel<false>"),
+             ("K11", 0): ("intersect", "closest_hit_kernel"),
+             ("K11", 1): ("group_probe_dense", "staged_closest_hit_kernel"),
+             ("K14", 0): ("fused_bounce", "culled_fused_bounce_kernel"),
+             ("K13", 0): ("culled_intersect", "culled_closest_hit_kernel<true>")}
 PROBE_DIR = ROOT / "build" / "group_probe"
 STAGED = ROOT / "scripts" / "group_probe_staged.cu"
+DENSE_ARMS = ROOT / "scripts" / "group_probe_dense.cu"
 FIELD_RAYS = 16384  # chip_smoke.py phase 25's random rays over the field
 
 
 def build_variants(shapes, parent, staged_k13: bool) -> dict:
-    """{(set, g, threads, stage): {source: (library path, ptxas entries)}},
-    the staged K13's under "staged" and, given a parent checkout, its
-    sources' under ("parent", source); every nvcc started together; raises
-    if one fails."""
+    """{(set, g, threads): {source: (library path, ptxas entries)}} (the
+    dense set also builds group_probe_dense.cu), the staged K13's under
+    "staged" and, given a parent checkout, its sources' under ("parent",
+    source); every nvcc started together; raises if one fails."""
     from distributed_raytracer_tpu_torch.ops.kernels import _build
 
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for key in shapes:
-        kind, g, t, stage = key
+        kind, g, t = key
         srcs, (d_group, d_threads), _ = SETS[kind]
         flags = [f"-D{d_group}={g}", f"-D{d_threads}={t}"]
-        if kind == "dense":
-            flags.append(f"-DDR_DENSE_STAGE={stage}")
         jobs += [(key, src, _build.CSRC / f"{src}.cu", flags) for src in srcs]
+        if kind == "dense":
+            jobs.append((key, "group_probe_dense", DENSE_ARMS, flags))
     if staged_k13:
         jobs.append(("staged", "staged", STAGED, ["-DDR_GROUP=32", "-DDR_GROUP_THREADS=1024"]))
     if parent:
@@ -112,15 +120,52 @@ def build_variants(shapes, parent, staged_k13: bool) -> dict:
     return built
 
 
+class Renamed:
+    """A loaded library whose entries named in `names` are other entries
+    of it, so that a wrapper of the package launches a probe variant."""
+
+    def __init__(self, lib, **names):
+        self._lib, self._names = lib, names
+
+    def __getattr__(self, name):
+        return getattr(self._lib, self._names.get(name, name))
+
+
+_opened = {}
+
+
+def opened(path):
+    """The library at path, loaded once."""
+    if path not in _opened:
+        _opened[path] = ctypes.CDLL(str(path))
+    return _opened[path]
+
+
 def use_libraries(libs: dict) -> None:
-    """Make the package's wrappers launch these libraries ({source: path});
-    an empty dict restores the package's own build."""
+    """Make the package's wrappers launch these libraries ({source: path
+    or loaded library}); an empty dict restores the package's own
+    build."""
     from distributed_raytracer_tpu_torch.ops.kernels import _build
 
     for src in ("fused_bounce", "intersect", "culled_intersect"):
         _build._loaded.pop(src, None)
-    for src, path in libs.items():
-        _build._loaded[src] = ctypes.CDLL(str(path))
+    for src, lib in libs.items():
+        _build._loaded[src] = opened(lib) if isinstance(lib, Path) else lib
+
+
+def dense_libraries(libs: dict, staged: int) -> dict:
+    """The dense variant's {source: library}: the package's two sources
+    as built, with K10 (staged 0) or K11 (staged 1) taken from the probe
+    arms' library instead (which reports the same -D shape through its own
+    copy of fused_bounce_shape)."""
+    arms = opened(libs["group_probe_dense"][0])
+    out = {src: opened(libs[src][0]) for src in SETS["dense"][0]}
+    if staged:
+        out["intersect"] = Renamed(arms, closest_hit_launch="staged_closest_hit_launch",
+                                   closest_hit_shape="fused_bounce_shape")
+    else:
+        out["fused_bounce"] = Renamed(arms, fused_bounce_launch="unstaged_fused_bounce_launch")
+    return out
 
 
 def same(got, want) -> bool:
@@ -287,7 +332,7 @@ def staged_k13(lib_path, k13_args, want13, built, rows, reps, dev):
     torch.cuda.synchronize()
     if not (torch.equal(t_s, want13[0]) and torch.equal(i_s, want13[1])):
         raise SystemExit("staged K13 differs from its plain version")
-    for (kind, g, t, _), libs in built.items():
+    for (kind, g, t), libs in built.items():
         if kind != "culled" or g != 32:
             continue
         use_libraries({src: path for src, (path, _) in libs.items()})
@@ -325,20 +370,20 @@ def main() -> int:
     print(f"[card] {card}", flush=True)
     dev = torch.device("cuda")
     kinds = args.kernels.split(",")
-    shapes = [(kind, int(g), int(t), int(s) if kind == "dense" else 0)
-              for kind in kinds for g in (args.groups or SETS[kind][2]).split(",")
-              for t in args.threads.split(",")
-              for s in (args.stage.split(",") if kind == "dense" else ["0"])]
+    shapes = [(kind, int(g), int(t)) for kind in kinds
+              for g in (args.groups or SETS[kind][2]).split(",") for t in args.threads.split(",")]
     built = build_variants(shapes, args.parent, "culled" in kinds)
     staged_lib = built.pop("staged", (None,))[0]
     parent_libs = {key[1]: built.pop(key)[0] for key in list(built) if key[0] == "parent"}
-    for (kind, g, t, s), libs in built.items():
+    for (kind, g, t), libs in built.items():
         for src, (_, entries) in libs.items():
             for e in entries:
-                print(f"[build] {kind} G={g} threads={t}{f' staged={s}' if kind == 'dense' else ''}"
-                      f" {src}.cu {e['kernel']}: {e['registers']} registers, spill stores "
-                      f"{e['spill_stores']} B, loads {e['spill_loads']} B, {e['smem']} B smem",
-                      flush=True)
+                print(f"[build] {kind} G={g} threads={t} {src}.cu {e['kernel']}: "
+                      f"{e['registers']} registers, spill stores {e['spill_stores']} B, loads "
+                      f"{e['spill_loads']} B, {e['smem']} B smem", flush=True)
+    # a variant: a shape and, for the dense set, staged 0 or 1
+    variants = [(kind, g, t, int(s)) for kind, g, t in built
+                for s in (args.stage.split(",") if kind == "dense" else ["0"])]
 
     runs = {"dense": dense_runs(dev, presets)} if "dense" in kinds else {}
     if "culled" in kinds:
@@ -347,27 +392,26 @@ def main() -> int:
                 "K13": ck.group_shape}
 
     rows = []
-    passes = list(built) + list(built)[::-1]
+    passes = variants + variants[::-1]
     for n_pass, key in enumerate(passes):
         kind, g, t, s = key
-        libs = built[key]
-        use_libraries({src: path for src, (path, _) in libs.items()})
+        libs = built[(kind, g, t)]
+        use_libraries(dense_libraries(libs, s) if kind == "dense"
+                      else {src: path for src, (path, _) in libs.items()})
         for run in runs[kind]:
             name, label, launch = run[:3]
-            if kind == "dense" and s and "field" in label:
+            if kind == "dense" and "field" in label and s != 0:
                 continue  # staging applies up to 512 spheres
             shape = shape_of[name]()
-            assert shape[:2] == (g, t) and (kind != "dense" or shape[2] == s), (name, shape, key)
+            assert tuple(shape) == (g, t), (name, shape, key)
             issued = torch.zeros(1, dtype=torch.int64, device=dev) if kind == "culled" else None
             stats = check_run(run, dev, issued)
             ms = kernel_ms(launch, args.reps)
             unheld = cuda_ms(launch, args.reps)
-            src, entry = KERNEL_OF[name]
-            regs = [e for e in libs[src][1] if e["kernel"].startswith(entry) and (
-                kind != "dense" or e["kernel"].endswith("<true>" if s and "final" in label
-                                                        else "<false>"))]
+            src, entry = KERNEL_OF[(name, s)]
+            regs = [e for e in libs[src][1] if e["kernel"] == entry]
             row = dict(kernel=name, batch=label, set=kind, group=g, threads=t, staged=s,
-                       pass_=n_pass // len(built), ms=ms, ms_unheld=unheld,
+                       pass_=n_pass // len(variants), ms=ms, ms_unheld=unheld,
                        registers=[e["registers"] for e in regs],
                        spill_stores=[e["spill_stores"] for e in regs])
             extra = ""
@@ -381,7 +425,7 @@ def main() -> int:
             rows.append(row)
             print(f"[group] {name} {label}: G={g}, {t} threads"
                   f"{f', staged {s}' if kind == 'dense' else ''} (pass "
-                  f"{n_pass // len(built) + 1}): {ms:.4f} ms per launch ({unheld:.4f} as the host "
+                  f"{n_pass // len(variants) + 1}): {ms:.4f} ms per launch ({unheld:.4f} as the host "
                   f"queues them), equal to plain{extra}", flush=True)
 
     for name, label in sorted({(r["kernel"], r["batch"]) for r in rows}):

@@ -486,7 +486,7 @@ def test_culled_closest_hit_group_walk_on_card(card, which, mode):
 # counters included, on lane counts that fill no whole block (and, at
 # G < 32, no whole warp of groups), on both of K10's instantiations (the
 # scene staged up to 512 spheres, read from global memory above) and on
-# the synthetic tie scene of tests/test_torch_dense_group.py ---
+# the synthetic tie scene of tests/test_torch_dense_scene.py ---
 
 
 def _dense_scene(which, card):
@@ -503,11 +503,11 @@ def _dense_scene(which, card):
         o = ((torch.rand(3001, 3, generator=g) * 2.0 - 1.0) * 40.0).to(card)
         d = torch.randn(3001, 3, generator=g).to(card)
         return presets.random_sphere_field(8192, seed=5, extent=30.0), (o, d)
-    from test_torch_dense_group import _arrays, _rays
+    from test_torch_dense_scene import tie_arrays, tie_rays
 
-    arrays = _arrays()
+    arrays = tie_arrays()
     return Scene.from_numpy(arrays, "cpu"), tuple(torch.from_numpy(x).to(card)
-                                                  for x in _rays(arrays))
+                                                  for x in tie_rays(arrays))
 
 
 @pytest.mark.parametrize("which", ["final512", "field600", "tie301"])
@@ -520,8 +520,8 @@ def test_fused_bounce_group_sweep_on_card(card, which):
     r = o.shape[0]
     act = (torch.arange(r) % 3 != 2).to(card)
     rid = (torch.arange(r, dtype=torch.int32) * 7 + 13).to(card)
-    g, threads, staged = bk.group_shape()
-    assert 1 <= g <= 32 and threads % 32 == 0 and staged in (0, 1)
+    g, threads = bk.group_shape()
+    assert 1 <= g <= 32 and threads % 32 == 0
     arrays = bk.fused_scene_arrays(scene.to(card))
     st_k, st_p = (torch.zeros(4, dtype=torch.int64, device=card) for _ in range(2))
     before = bk.fused_bounce_cuda.launches
@@ -549,7 +549,7 @@ def test_closest_hit_group_sweep_on_card(card, which):
     scene, (o, d) = _dense_scene(which, card)
     sc = scene.to(card)
     sph = ik.sphere_pack(sc.centers, sc.radii)
-    g, threads, _ = ik.group_shape()
+    g, threads = ik.group_shape()
     assert 1 <= g <= 32 and threads % 32 == 0
     st_k, st_p = (torch.zeros(1, dtype=torch.int64, device=card) for _ in range(2))
     before = ik.closest_hit_cuda.launches
@@ -562,7 +562,7 @@ def test_closest_hit_group_sweep_on_card(card, which):
     assert torch.equal(t_m, t_p) and torch.equal(idx_m, idx_p)
     assert int(st_k) == int(st_p) == n["near"]
     if which == "tie301":
-        from test_torch_dense_group import TWINS
+        from test_torch_dense_scene import TWINS
 
         assert int((idx == TWINS[0]).sum()) >= 10 and not bool((idx == TWINS[1]).any())
 

@@ -24,9 +24,9 @@ whose float32 discriminant XLA:CPU and torch may round to opposite signs
 (measured: one ray aimed at a rim, |disc| 5.5e-8 of its terms, hit by
 JAX at t = 0.99920 and missed by torch; float64 hits at 0.99934); the 54
 rays with a grazing test are held to the plain versions above, bit for
-bit.  JAX is imported by that check's fixture alone, so that the card
-tests (tests/test_torch_cuda.py), which run where JAX need not be, can
-take the scene from here."""
+bit.  The scene is built in tests/test_torch_dense_scene.py, which the
+card tests (tests/test_torch_cuda.py) share; JAX is imported by the
+interpret-mode check's fixture alone."""
 
 import numpy as np
 import pytest
@@ -38,63 +38,24 @@ from distributed_raytracer_tpu_torch.ops.kernels import bounce_kernel as bk
 from distributed_raytracer_tpu_torch.ops.kernels import culled_kernel as ck
 from distributed_raytracer_tpu_torch.ops.kernels import intersect_kernel as ik
 from distributed_raytracer_tpu_torch.ops.kernels.bounce import sweep_t
+from test_torch_dense_scene import N, PAD, TWINS, tie_arrays, tie_rays
 
-torch.set_num_threads(1)
 GROUPS = [1, 4, 8, 16, 32]
-N = 301
-TWINS = (7, 289)  # the same sphere; lanes 7 and 1 at G >= 8, 3 and 1 at G = 4
-PAD = 150  # radius 0: packed with r^2 = -1
 
 
-def _arrays():
-    """The scene's six arrays: the ground (radius 1000) at index 0, small
-    spheres of radius 0.15-0.6 over a 24 x 24 patch, sphere PAD of radius
-    0, sphere TWINS[1] a copy of TWINS[0]; random materials."""
-    rng = np.random.default_rng(21)
-    centers = rng.uniform([-12.0, 0.2, -12.0], [12.0, 3.0, 12.0], size=(N, 3))
-    radii = rng.uniform(0.15, 0.6, N)
-    centers[0], radii[0] = (0.0, -1000.0, 0.0), 1000.0
-    radii[PAD] = 0.0
-    centers[TWINS[1]], radii[TWINS[1]] = centers[TWINS[0]], radii[TWINS[0]]
-    return dict(centers=centers.astype(np.float32), radii=radii.astype(np.float32),
-                albedo=rng.uniform(0.1, 0.9, (N, 3)).astype(np.float32),
-                mat_type=rng.integers(0, 3, N).astype(np.int32),
-                fuzz=rng.uniform(0.0, 0.5, N).astype(np.float32),
-                ior=np.full(N, 1.5, np.float32))
-
-
-def _rays(arrays):
-    """[R, 3] origins and directions, R = 333: rays from above the patch at
-    random points of it, grazing rays (aimed at a sphere's rim), rays at
-    the twins from just above them and rays into the sky."""
-    rng = np.random.default_rng(22)
-    c = arrays["centers"].astype(np.float64)
-    r = arrays["radii"].astype(np.float64)
-
-    def origins(k):
-        return rng.uniform([-16.0, 1.0, -16.0], [16.0, 7.0, 16.0], size=(k, 3))
-
-    o1 = origins(192)
-    d1 = rng.uniform([-12.0, 0.0, -12.0], [12.0, 3.0, 12.0], size=(192, 3)) - o1
-    o2 = origins(72)
-    k = rng.choice(np.setdiff1d(np.arange(1, N), [PAD]), 72)
-    perp = np.cross(c[k] - o2, rng.normal(size=(72, 3)))
-    perp /= np.linalg.norm(perp, axis=-1, keepdims=True)
-    d2 = c[k] + r[k, None] * perp - o2
-    tw = TWINS[0]
-    o3 = c[tw] + rng.uniform([-1.0, 1.5, -1.0], [1.0, 2.5, 1.0], size=(48, 3))
-    d3 = c[tw] + 0.3 * r[tw] * rng.normal(size=(48, 3)) - o3
-    o4 = o3[:21] + [0.0, 0.5, 0.0]
-    d4 = rng.normal(size=(21, 3)) * 0.2 + [0.0, 1.0, 0.0]
-    o = np.concatenate([o1, o2, o3, o4]).astype(np.float32)
-    d = np.concatenate([d1, d2, d3, d4]).astype(np.float32)
-    return o, d
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One CPU thread for this module's tests, restored after them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
 def setup():
-    arrays = _arrays()
-    o, d = _rays(arrays)
+    arrays = tie_arrays()
+    o, d = tie_rays(arrays)
     scene = Scene.from_numpy(arrays, "cpu")
     sph = ik.sphere_pack(scene.centers, scene.radii)
     return arrays, scene, sph, torch.from_numpy(o), torch.from_numpy(d)
