@@ -973,6 +973,7 @@ def check_ray_pose_path(dev, final, cam_main) -> dict:
         make_tape_camera_pose_tracer,
         make_tape_tracer,
     )
+    from distributed_raytracer_tpu_torch.core import prng
     from distributed_raytracer_tpu_torch.ops.camera import camera_scalar_row
     from distributed_raytracer_tpu_torch.ops.kernels import mega_bwd_kernel as mbk
     from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
@@ -1100,7 +1101,7 @@ def check_ray_pose_path(dev, final, cam_main) -> dict:
     p = {k: v.to(dev).clone().requires_grad_() for k, v in final.diff_params().items()}
     scene_p = final.with_diff_params(p)
     ray_o, ray_d = o_s.clone().requires_grad_(), d_s.clone().requires_grad_()
-    tracer = make_tape_tracer(BOUNCE_SEED, cam_main.max_depth)
+    tracer = make_tape_tracer(prng.PRNGKey(1), cam_main.max_depth, use_mega=True, mega_bwd=True)
     target = torch.zeros(RAY_TRACER_RAYS, 3, device=dev)
     mk.mega_forward_cuda.launches = 0
     mbk.mega_backward_cuda.launches = 0
@@ -1839,6 +1840,413 @@ def check_reference_path(dev, presets, final, cam_main, peak: float) -> dict:
     }
 
 
+# the host-loop tape tracer's configuration on the training phases
+# (bench.py:193-243): pool, refill block, tape budget, and the key
+TAPE_POOL, TAPE_REFILL, TAPE_BUDGET = 2048, 2, 704
+# two training runs that differ only by a kernel against its plain version
+# give the same tape bit for bit; their gradients part by the order of the
+# backward's index_add_ atomics alone, each field normalized by its max
+TRAIN_GRAD_BAND = 1e-4
+
+
+class RecordCalls:
+    """Wraps module.name (a kernel wrapper the tracers call) for one run:
+    keeps each call's arguments, so the run's launches can be replayed;
+    plain=fn routes the calls to fn instead (the plain version)."""
+
+    def __init__(self, module, name: str, plain=None):
+        self.module, self.name, self.plain, self.calls = module, name, plain, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+    def __call__(self, *args, **kw):
+        self.calls.append(args)
+        return (self.plain or self.real)(*args, **kw)
+
+    # a wrapper that counts its launches on its own name counts on the real one
+    @property
+    def launches(self):
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.real.launches = value
+
+    def replay_ms(self, launch, prep=lambda *a: a) -> float:
+        args = [prep(*a) for a in self.calls]
+
+        def replay():
+            for a in args:
+                launch(*a)
+
+        return kernel_ms(replay, 1)
+
+
+def grad_band(label, got: dict, want: dict, band: float) -> float:
+    """Each field's gradients against the reference run's, normalized by
+    its max; returns the largest."""
+    worst = 0.0
+    for k, w in want.items():
+        err = float((got[k] - w).abs().max()) / (float(w.abs().max()) + 1e-30)
+        worst = max(worst, err)
+    log(f"[train] {label}: gradients within {worst:.3e} of the reference run's (band "
+        f"{band:g}, each field normalized by its max)")
+    require(worst <= band, f"{label}: gradients part from the reference run's by {worst:.3e}")
+    return worst
+
+
+def check_training_paths(dev, presets, final, cam_main) -> dict:
+    """Phases 30-34: the training paths of the host-loop tape tracer, the
+    path-replay tracer and diff_render, which run K10, K11 and K12/K13.
+    (a) make_tape_tracer(use_mega=False) with K11 on 262,144 rays strided
+    over 1200x675 (bench.py:193-243: pool 2,048, refill every 2, budget 704
+    with its worst-case fallback), image_loss(...).backward(), colors, n_it
+    and tape bit for bit against the same step with K11's plain version,
+    gradients within TRAIN_GRAD_BAND; (b) the same with use_fused (K10);
+    (c) the 8,192-sphere field at 1024x576 depth 8 with K12 and K13; (d)
+    make_pathgrad_tracer (scan, wavefront, fused) on the 262,144 rays and
+    make_image_grad_fn on all 810,000 pixels, colors and _Step records bit
+    for bit against the same step with the kernel's plain version, loss
+    equal, gradients within the band; (e) InverseRenderer(engine="tape") at
+    1200x675, its first step's loss and tape bit for bit and its albedo
+    gradient within the band against the plain K10's, then the CLI's
+    grad-check and invert.  Each kernel's count is set to 0 just before a
+    path runs and read just after; its launches are replayed for their card
+    time."""
+    from distributed_raytracer_tpu_torch import (
+        InverseRenderer,
+        image_loss,
+        make_image_grad_fn,
+        make_pathgrad_tracer,
+        make_tape_tracer,
+    )
+    from distributed_raytracer_tpu_torch.core import prng
+    from distributed_raytracer_tpu_torch.grad import pathgrad as tpg
+    from distributed_raytracer_tpu_torch.grad import tapegrad as ttg
+    from distributed_raytracer_tpu_torch.ops.camera import generate_rays
+    from distributed_raytracer_tpu_torch.ops.kernels import bounce_kernel as bk
+    from distributed_raytracer_tpu_torch.ops.kernels import culled_kernel as ck
+    from distributed_raytracer_tpu_torch.ops.kernels import intersect_kernel as ik
+    from distributed_raytracer_tpu_torch.render.progressive import render_progressive
+
+    def strided_rays(cam, n_rays):
+        """n_rays camera rays strided over the whole image, from generate_rays
+        on PRNGKey(0) (bench.py:209-216)."""
+        n_pix, w = cam.num_pixels, cam.image_width
+        ids = torch.from_numpy(np.arange(n_rays, dtype=np.int64) * n_pix // n_rays).to(dev)
+        return generate_rays(cam.to(dev), ids % w, ids // w, key=prng.PRNGKey(0))
+
+    def step(tracer, scene, o, d, *extra):
+        """One training step through the entry point: colors, image_loss
+        against zeros, backward; returns (colors, the five fields'
+        gradients, wall ms)."""
+        p = {k: v.detach().clone().requires_grad_() for k, v in scene.diff_params().items()}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        colors = tracer(scene.with_diff_params(p), o, d, *extra)
+        image_loss(colors, torch.zeros_like(colors)).backward()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        require(bool(torch.isfinite(colors).all()), "training colors are not finite")
+        for k, v in p.items():
+            require(bool(torch.isfinite(v.grad).all()), f"{k} gradient not finite")
+        require(float(p["albedo"].grad.abs().max()) > 0.0, "albedo gradient is zero")
+        return colors.detach(), {k: v.grad for k, v in p.items()}, wall
+
+    class Capture(RecordCalls):
+        """Keeps the output of module.name's last call (a recording forward)."""
+
+        def __init__(self, module, name):
+            super().__init__(module, name)
+            self.out = None
+
+        def __call__(self, *args, **kw):
+            self.out = self.real(*args, **kw)
+            return self.out
+
+    def same_bits(a, b) -> bool:
+        """The same shape and bits (floats compared as their int32 words)."""
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.shape == b.shape and torch.equal(a, b)
+
+    def both_arms(label, run, swap, fwd):
+        """run(arm) with the kernel (its launches counted) and again with its
+        plain version in the kernel's wrapper's place: per arm, run's result,
+        the last output of the recording forward fwd = (module, name), the
+        launches and the recorded calls.  swap = (module, wrapper name, plain
+        version, counter); run(arm) makes its tracer itself, inside the swap,
+        so an intersect that binds its launcher when made binds the swapped
+        one."""
+        module, name, plain, counter = swap
+        out = {}
+        for arm in ("kernel", "plain"):
+            with Capture(*fwd) as cap, RecordCalls(module, name,
+                                                   plain if arm == "plain" else None) as rec:
+                counter.launches = 0
+                res = run(arm)
+            out[arm] = dict(res=res, fwd=cap.out, launches=counter.launches, rec=rec)
+        k, p = out["kernel"], out["plain"]
+        require(k["launches"] >= 1 and k["launches"] == len(k["rec"].calls),
+                f"{label}: {k['launches']} launches for {len(k['rec'].calls)} calls")
+        require(p["launches"] == 0, f"{label}: the plain run launched the kernel")
+        return k, p
+
+    def same_tape_fwd(label, k, p):
+        """The host-loop forwards of two arms: colors, n_it, pos and tape bit
+        for bit; returns n_it."""
+        (col_k, tape_k, n_it, pos_k), (col_p, tape_p, n_it_p, pos_p) = k["fwd"], p["fwd"]
+        same = (n_it == n_it_p and same_bits(col_k, col_p) and torch.equal(pos_k, pos_p)
+                and same_bits(tape_k.idata, tape_p.idata)
+                and same_bits(tape_k.fdata, tape_p.fdata))
+        require(k["launches"] == n_it, f"{label}: {k['launches']} launches for {n_it} tape rows")
+        log(f"[train] {label}: n_it {n_it}, {k['launches']} launches; kernel run == plain run "
+            f"bit for bit (colors, n_it, pos, tape) {same}")
+        require(same, f"{label}: the kernel's training run differs from the plain one")
+        return n_it
+
+    def tape_run(label, scene, o, d, key, counter, swap, make_kw):
+        """The host-loop tape tracer's step with its kernel (counted) and
+        again with swap's plain version: colors, n_it, pos and tape bit for
+        bit, gradients within the band; the kernel's launches replayed.
+        swap = (module, wrapper name, plain version, launch, prep); the
+        tracer's arguments are made by make_kw() inside the swap."""
+        module, name, plain, launch, prep = swap
+        k, p = both_arms(label, lambda arm: step(make_tape_tracer(key, **make_kw()), scene, o, d),
+                         (module, name, plain, counter), (ttg, "_forward_tape"))
+        n_it = same_tape_fwd(label, k, p)
+        (_, grads_k, wall), (_, grads_p, wall_p) = k["res"], p["res"]
+        band = grad_band(label, grads_k, grads_p, TRAIN_GRAD_BAND)
+        kern = k["rec"].replay_ms(launch, prep)
+        log(f"[time] {label}: fwd+bwd step {wall:.1f} ms wall "
+            f"({o.shape[0] / wall * 1e3:,.0f} rays/s), plain-kernel step "
+            f"{wall_p:.1f} ms; the kernel's {k['launches']} launches replayed {kern:.2f} ms, "
+            f"host share {(wall - kern) / wall:.1%}")
+        return dict(n_it=n_it, launches=k["launches"], ms_per_step=wall,
+                    plain_ms_per_step=wall_p, kernel_ms=kern,
+                    host_share=(wall - kern) / wall, grad_err=band)
+
+    final_dev = final.to(dev)
+    o_s, d_s = strided_rays(cam_main, RAY_TRACER_RAYS)
+    depth = cam_main.max_depth
+    tape_kw = dict(max_depth=depth, pool=TAPE_POOL, refill_every=TAPE_REFILL)
+    key1 = prng.PRNGKey(1)
+    rec = {}
+
+    def budget_for(**kw):
+        """bench.py:229-242: the trip count of one untimed forward at the
+        tight budget; the worst-case tape (None) if it comes within 20%."""
+        _, _, n_it, _ = ttg._forward_tape(final_dev, o_s, d_s, key1, depth, TAPE_POOL,
+                                          budget=TAPE_BUDGET, refill_every=TAPE_REFILL, **kw)
+        tight = n_it * 1.2 < TAPE_BUDGET
+        log(f"[train] tape trip count {n_it} / budget {TAPE_BUDGET}"
+            + ("" if tight else " -> the worst-case tape"))
+        return TAPE_BUDGET if tight else None
+
+    # --- phase 30 (a): the host-loop tape tracer with K11 ---
+    budget = budget_for(intersect_fn=ik.closest_hit_pallas)
+    rec["tape_k11"] = tape_run(
+        f"(a) tape tracer, K11, final, {RAY_TRACER_RAYS:,} strided rays depth 50", final_dev,
+        o_s, d_s, key1, ik.closest_hit_cuda,
+        (ik, "closest_hit_dense", ik.closest_hit_plain, ik.closest_hit_cuda,
+         lambda o, d, sph: (o.contiguous(), d.contiguous(), sph)),
+        lambda: dict(intersect_fn=ik.closest_hit_pallas, budget=budget, **tape_kw))
+
+    # --- phase 31 (b): the same tracer with use_fused (K10) ---
+    budget = budget_for(use_fused=True)
+    rec["tape_k10"] = tape_run(
+        f"(b) tape tracer, use_fused K10, final, {RAY_TRACER_RAYS:,} strided rays depth 50",
+        final_dev, o_s, d_s, key1, bk.fused_bounce_cuda,
+        (ttg, "fused_bounce", bk.fused_bounce_plain, bk.fused_bounce_cuda, lambda *a: a),
+        lambda: dict(use_fused=True, budget=budget, **tape_kw))
+
+    # --- phase 32 (c): the 8,192-sphere field with K12 and K13 ---
+    field = presets.random_sphere_field(8192, seed=5, extent=30.0)
+    cam_w = walk_camera(presets, 1024)
+    culled_w = ck.build_culled_scene(field, chunk=FUSED_CHUNK)
+    scene_w = culled_w.scene.to(dev)
+    o_w, d_w = strided_rays(cam_w, cam_w.num_pixels)
+    for mode, counter in (("grid", ck.culled_closest_hit_cuda),
+                          ("walk", ck.culled_closest_hit_walk_cuda)):
+        name = "culled_closest_hit_walk_cuda" if mode == "walk" else "culled_closest_hit_cuda"
+
+        def culled_plain(o, d, sph, bnd, order, n_visit, chunk, br):
+            return ck.culled_closest_hit_plain(o, d, sph, order, chunk, br)
+
+        rec[f"tape_k1{2 if mode == 'grid' else 3}"] = tape_run(
+            f"(c) tape tracer, K1{2 if mode == 'grid' else 3} ({mode}), field 1024x576 "
+            f"depth 8, {cam_w.num_pixels:,} rays, pool 16,384", scene_w, o_w, d_w, key1,
+            counter, (ck, name, culled_plain, counter, lambda *a: a),
+            lambda: dict(intersect_fn=ck.make_culled_intersect(culled_w, mode=mode),
+                         max_depth=cam_w.max_depth, pool=16384))
+
+    # --- phase 33 (d): the path-replay tracer, then make_image_grad_fn ---
+    k11_swap = (ik, "closest_hit_dense", ik.closest_hit_plain, ik.closest_hit_cuda)
+    k10_swap = (tpg, "fused_bounce", bk.fused_bounce_plain, bk.fused_bounce_cuda)
+    k11_replay = (ik.closest_hit_cuda, lambda o, d, sph: (o.contiguous(), d.contiguous(), sph))
+    k10_replay = (bk.fused_bounce_cuda, lambda *a: a)
+    primal_fwd = {"scan": "_forward_scan", "wavefront": "_forward_wavefront",
+                  "fused": "_forward_scan_fused"}
+
+    def replayed(label, rec, replay, wall, launches):
+        """The run's launches replayed for their card time; logs the host
+        share."""
+        kern = rec.replay_ms(*replay)
+        log(f"[time] {label}: {launches} launches replayed {kern:.2f} ms of {wall:.1f} ms "
+            f"wall, host share {(wall - kern) / wall:.1%}")
+        return dict(kernel_ms=kern, host_share=(wall - kern) / wall)
+
+    def same_steps(label, k, p, n_rays):
+        """The path-replay forwards of two arms: colors and _Step records bit
+        for bit."""
+        (col_k, steps_k), (col_p, steps_p) = k["fwd"], p["fwd"]
+        same = same_bits(col_k, col_p) and all(same_bits(a, b) for a, b in zip(steps_k, steps_p))
+        log(f"[train] {label}: kernel run == plain run bit for bit (colors and _Step records, "
+            f"all {n_rays:,} rays) {same}")
+        require(same, f"{label}: the kernel's forward differs from the plain one")
+
+    paths = {}
+    for primal in ("scan", "wavefront", "fused"):
+        label = f"(d) pathgrad primal={primal}"
+        kern_name = "K10" if primal == "fused" else "K11"
+        k, p = both_arms(
+            label, lambda arm: step(make_pathgrad_tracer(
+                key1, depth, intersect_fn=ik.closest_hit_pallas, primal=primal), final_dev, o_s,
+                d_s),
+            k10_swap if primal == "fused" else k11_swap, (tpg, primal_fwd[primal]))
+        same_steps(label, k, p, RAY_TRACER_RAYS)
+        (colors, grads, wall), (_, grads_p, wall_p) = k["res"], p["res"]
+        launches = k["launches"]
+        paths[primal] = dict(colors=colors, grads=grads, ms_per_step=wall,
+                             plain_ms_per_step=wall_p, launches=launches,
+                             grad_err=grad_band(label, grads, grads_p, TRAIN_GRAD_BAND))
+        log(f"[train] {label}, final, {RAY_TRACER_RAYS:,} strided rays depth 50: fwd+bwd "
+            f"{wall:.1f} ms wall ({RAY_TRACER_RAYS / wall * 1e3:,.0f} rays/s), plain-kernel "
+            f"step {wall_p:.1f} ms, n_it {launches} forward rows, {launches} {kern_name} "
+            f"launches")
+        paths[primal].update(replayed(f"(d) pathgrad {primal}", k["rec"],
+                                      k10_replay if primal == "fused" else k11_replay, wall,
+                                      launches))
+        del k, p
+    same = torch.equal(paths["scan"]["colors"], paths["wavefront"]["colors"])
+    log(f"[train] (d) wavefront primal == scan primal bit for bit {same}")
+    require(same, "the wavefront primal differs from the scan primal")
+    paths["wavefront_vs_scan_grad_err"] = grad_band(
+        "(d) pathgrad wavefront vs scan", paths["wavefront"]["grads"], paths["scan"]["grads"],
+        TRAIN_GRAD_BAND)
+
+    def image_grad(arm):
+        grad_fn = make_image_grad_fn(cam_main, pool_divisor=8, intersect_fn=ik.closest_hit_pallas)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, grads = grad_fn(final_dev, torch.zeros(cam_main.num_pixels, 3, device=dev), [0])
+        torch.cuda.synchronize()
+        return loss, grads, (time.time() - t0) * 1e3
+
+    label = "(d) make_image_grad_fn"
+    k, p = both_arms(label, image_grad, k11_swap, (tpg, "_forward_scan"))
+    same_steps(label, k, p, cam_main.num_pixels)
+    (loss, grads, wall), (loss_p, grads_p, wall_p) = k["res"], p["res"]
+    launches = k["launches"]
+    require(np.isfinite(float(loss)) and all(bool(torch.isfinite(g).all())
+                                             for g in grads.values()),
+            "make_image_grad_fn: loss or gradients not finite")
+    require(same_bits(loss, loss_p), f"{label}: loss {float(loss)} differs from the plain "
+            f"run's {float(loss_p)}")
+    paths["image_grad"] = dict(ms=wall, plain_ms=wall_p, launches=launches, loss=float(loss),
+                               grad_err=grad_band(label, grads, grads_p, TRAIN_GRAD_BAND))
+    log(f"[train] {label}, final 1200x675 depth 50, 1 sample: loss {float(loss):.6f} (plain "
+        f"run's equal), {wall:.1f} ms wall ({cam_main.num_pixels / wall * 1e3:,.0f} rays/s), "
+        f"plain-kernel {wall_p:.1f} ms, n_it {launches} forward rows, {launches} K11 launches")
+    paths["image_grad"].update(replayed(label, k["rec"], k11_replay, wall, launches))
+    rec["pathgrad"] = {k: ({kk: vv for kk, vv in v.items() if kk not in ("colors", "grads")}
+                           if isinstance(v, dict) else v) for k, v in paths.items()}
+    del paths, k, p
+
+    # --- phase 34 (e): InverseRenderer(engine="tape") with K10, then the CLI ---
+    true = render_progressive(final, cam_main, seed=3, spp=1, batch=1, engine="mega")
+    target = torch.from_numpy(true.mean_image().reshape(-1, 3)).to(dev)
+    noise = torch.from_numpy(np.random.default_rng(0).normal(0, 0.1, (final.num_spheres, 3))
+                             .astype(np.float32))
+    start = final.with_diff_params({"albedo": torch.clamp(final.albedo + noise, 0.05, 0.95)})
+    invs = {}
+
+    def inverse_step(arm):
+        """One step of the arm's InverseRenderer (made at its first step):
+        (loss, albedo gradient, wall ms)."""
+        if arm not in invs:
+            invs[arm] = InverseRenderer(start, cam_main, target, fields=("albedo",),
+                                        spp_per_step=1, engine="tape")
+        inv = invs[arm]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss = inv.step()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        (albedo,) = inv.opt.param_groups[0]["params"]
+        return loss, albedo.grad.clone(), wall
+
+    label = "(e) InverseRenderer step 0"
+    k, p = both_arms(label, inverse_step, (ttg, "fused_bounce", bk.fused_bounce_plain,
+                                           bk.fused_bounce_cuda), (ttg, "_forward_tape"))
+    same_tape_fwd(label, k, p)
+    (loss, g_alb, wall), (loss_p, g_alb_p, wall_p) = k["res"], p["res"]
+    require(np.isfinite(loss) and loss == loss_p,
+            f"{label}: loss {loss} against the plain run's {loss_p}")
+    grad_err = grad_band(label, {"albedo": g_alb}, {"albedo": g_alb_p}, TRAIN_GRAD_BAND)
+    inv_steps = [dict(loss=loss, ms=wall, plain_ms=wall_p, launches=k["launches"],
+                      grad_err=grad_err, rec=k["rec"])]
+    del k, p, invs["plain"]
+    # step 1 on the kernel arm's renderer, after its Adam step
+    bk.fused_bounce_cuda.launches = 0
+    with RecordCalls(ttg, "fused_bounce") as rc:
+        loss, _, wall = inverse_step("kernel")
+    launches = bk.fused_bounce_cuda.launches
+    require(np.isfinite(loss) and launches >= 1 and launches == len(rc.calls),
+            f"InverseRenderer step 1: loss {loss}, {launches} K10 launches")
+    inv_steps.append(dict(loss=loss, ms=wall, launches=launches, rec=rc))
+    for i, st in enumerate(inv_steps):
+        log(f"[train] (e) InverseRenderer(engine='tape') final 1200x675 depth 50, step {i}: "
+            f"loss {st['loss']:.6f}" + (" (plain run's equal)" if i == 0 else "")
+            + f", {st['ms']:.1f} ms wall"
+            + (f" (plain-kernel {st['plain_ms']:.1f} ms)" if i == 0 else "")
+            + f", n_it {st['launches']} tape rows, {st['launches']} K10 launches")
+        st.update(replayed(f"(e) InverseRenderer step {i}", st.pop("rec"), k10_replay, st["ms"],
+                           st["launches"]))
+    rec["inverse"] = inv_steps
+    del invs
+    for args in (["grad-check"], ["invert", "--steps", "3"]):
+        t0 = time.time()
+        r = subprocess.run(
+            [sys.executable, "-m", "distributed_raytracer_tpu_torch.cli", *args, "--config",
+             "config1", "--width", "64"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        tail = r.stderr.strip().splitlines()[-1] if r.stderr.strip() else ""
+        log(f"[cli] {' '.join(args)} exit {r.returncode} in {time.time() - t0:.1f} s: {tail}")
+        require(r.returncode == 0, r.stderr[-4000:])
+        require("finite=False" not in r.stderr and ("loss:" in r.stderr
+                                                    or "final albedo MAE" in r.stderr),
+                f"cli {args[0]}: {r.stderr[-2000:]}")
+
+    launches = {
+        "fused_bounce": {"tape (b)": rec["tape_k10"]["launches"],
+                         "pathgrad fused (d)": rec["pathgrad"]["fused"]["launches"],
+                         "InverseRenderer (e)": inv_steps[-1]["launches"]},
+        "closest_hit": {"tape (a)": rec["tape_k11"]["launches"],
+                        "pathgrad scan (d)": rec["pathgrad"]["scan"]["launches"],
+                        "pathgrad wavefront (d)": rec["pathgrad"]["wavefront"]["launches"],
+                        "image grad (d)": rec["pathgrad"]["image_grad"]["launches"]},
+        "culled_closest_hit": {"tape (c)": rec["tape_k12"]["launches"]},
+        "culled_closest_hit_walk": {"tape (c)": rec["tape_k13"]["launches"]},
+    }
+    return dict(training_launches=launches, record=rec)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, help="write the run's numbers to this JSON file")
@@ -1994,6 +2402,9 @@ def main() -> int:
     # --- phases 24-29: the reference bounce, its scan and wavefront engines
     # (K11, K12, K13) ---
     ref = check_reference_path(dev, presets, final, cam_main, peak)
+    # --- phases 30-34: the training paths of the host-loop tape tracer, the
+    # path-replay tracer and diff_render (K10, K11, K12, K13) ---
+    train = check_training_paths(dev, presets, final, cam_main)
 
     # --- phase 9: the kernel line, then the device line last ---
     # K5 at the main-path shape traced the rays K6 recorded (sample 0, the
@@ -2027,6 +2438,9 @@ def main() -> int:
             plain_ms=g["plain_ms"], bound_ms=max(ops_s, bytes_s) * 1e3,
             bound_by="operations" if ops_s >= bytes_s else "bytes", library_ms=None,
             library_note=NO_LIBRARY[src]))
+        if name in train["training_launches"]:
+            # the same kernel's launches on each training path (phases 30-34)
+            kernels[-1]["training_launches"] = train["training_launches"][name]
         for key in ("max_norm_err",  # g_pm's columns span orders of magnitude
                     # the persistent kernels (K5-K9): lane use, the walk's sweep lane use,
                     # one thread per ray in static warps of 32
@@ -2047,6 +2461,7 @@ def main() -> int:
                       main_path_ms_per_sample=wall * 1e3 / 4, gradient_path=grad["record"],
                       walk_path=walk["record"], ray_pose_path=rays["record"],
                       fused_path=fused["record"], reference_path=ref["record"],
+                      training_paths=train["record"],
                       seconds=time.time() - t_start)
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

@@ -8,7 +8,15 @@ with a plain PyTorch version beside it that runs on CPU tensors.  Entry
 points run on the CUDA card unless the caller asks for the CPU.
 """
 
-from distributed_raytracer_tpu_torch.grad.diff_render import image_loss
+from distributed_raytracer_tpu_torch.grad.diff_render import (
+    CAMERA_POSE_FIELDS,
+    InverseRenderer,
+    image_loss,
+    render_diff,
+    scene_and_camera_grads,
+    scene_grads,
+)
+from distributed_raytracer_tpu_torch.grad.pathgrad import make_image_grad_fn, make_pathgrad_tracer
 from distributed_raytracer_tpu_torch.grad.tapegrad import (
     make_tape_camera_pose_tracer,
     make_tape_camera_tracer,
@@ -45,6 +53,13 @@ __all__ = [
     "render_sample_batch",
     "render_image_wavefront",
     "image_loss",
+    "render_diff",
+    "scene_grads",
+    "scene_and_camera_grads",
+    "InverseRenderer",
+    "CAMERA_POSE_FIELDS",
+    "make_pathgrad_tracer",
+    "make_image_grad_fn",
     "LAMBERTIAN",
     "METAL",
     "DIELECTRIC",

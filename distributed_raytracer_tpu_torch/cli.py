@@ -14,6 +14,13 @@ intersects it with the block-culled K12).  It runs on the CUDA card;
 
     python -m distributed_raytracer_tpu_torch.cli render --engine fused --accel culled --cpu
     python -m distributed_raytracer_tpu_torch.cli render --engine wavefront --pallas --cpu
+
+`grad-check` prints the loss and dL/dscene of a 4-sample render against
+the render of another key; `invert` recovers a perturbed albedo by Adam
+steps on the scan engine (JAX's cli.py:533-582), --steps of them:
+
+    python -m distributed_raytracer_tpu_torch.cli grad-check --config config1 --width 64
+    python -m distributed_raytracer_tpu_torch.cli invert --config config1 --width 64 --steps 3
 """
 
 from __future__ import annotations
@@ -89,16 +96,73 @@ def cmd_render(args):
           file=sys.stderr)
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(prog="distributed_raytracer_tpu_torch", allow_abbrev=False)
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("render", help="single-device progressive render", allow_abbrev=False)
+def cmd_grad_check(args):
+    import numpy as np
+    import torch
+
+    from distributed_raytracer_tpu_torch.core import prng
+    from distributed_raytracer_tpu_torch.grad.diff_render import render_diff, scene_grads
+
+    scene, cam = _load(args)
+    dev = _device(args)
+    s = range(4)
+    with torch.no_grad():
+        target = render_diff(scene.to(dev), cam.to(dev), prng.PRNGKey(args.seed + 1), s)
+    loss, grads = scene_grads(scene, cam, prng.PRNGKey(args.seed), s, target, device=dev)
+    print(f"loss: {float(loss):.6f}", file=sys.stderr)
+    for k, g in grads.items():
+        g = g.cpu().numpy()
+        print(f"  d/d{k}: |g|={np.abs(g).max():.3e} finite={np.all(np.isfinite(g))}",
+              file=sys.stderr)
+
+
+def cmd_invert(args):
+    import numpy as np
+    import torch
+
+    from distributed_raytracer_tpu_torch.core import prng
+    from distributed_raytracer_tpu_torch.grad.diff_render import InverseRenderer, render_diff
+
+    scene, cam = _load(args)
+    dev = _device(args)
+    cam = cam.replace(samples_per_pixel=4)
+    with torch.no_grad():
+        target = render_diff(scene.to(dev), cam.to(dev), prng.PRNGKey(123), range(8))
+    rng = np.random.default_rng(args.seed)
+    noise = torch.as_tensor(rng.normal(0, 0.2, tuple(scene.albedo.shape)), dtype=torch.float32)
+    start = scene.with_diff_params({"albedo": torch.clamp(scene.albedo + noise, 0.05, 0.95)})
+    inv = InverseRenderer(start, cam, target, fields=("albedo",), learning_rate=2e-2,
+                          device=dev)
+    for i in range(args.steps):
+        loss = inv.step()
+        if i % 10 == 0:
+            print(f"step {i}: loss {loss:.6f}", file=sys.stderr)
+    err = float((inv.scene.albedo.cpu() - scene.albedo).abs().mean())
+    print(f"final albedo MAE: {err:.4f}", file=sys.stderr)
+
+
+def _device(args):
+    from distributed_raytracer_tpu_torch.core.device import resolve_device
+
+    return resolve_device("cpu" if args.cpu else None)
+
+
+def _add_common(p):
     p.add_argument("--config", default="config1", help="preset name (config1..config5)")
     p.add_argument("--spp", type=int, default=None, help="override samples per pixel")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch", type=int, default=16, help="samples per batch")
-    p.add_argument("--width", type=int, default=None, help="override image width")
     p.add_argument("--out", default=None, help="output .ppm path")
+    p.add_argument("--width", type=int, default=None, help="override image width")
+    p.add_argument("--cpu", action="store_true",
+                   help="run the plain PyTorch version on the CPU")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="distributed_raytracer_tpu_torch", allow_abbrev=False)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("render", help="single-device progressive render", allow_abbrev=False)
+    _add_common(p)
     p.add_argument("--checkpoint", default=None, help="checkpoint path for resume")
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--engine", choices=["mega", "fused", "scan", "wavefront"], default="mega",
@@ -114,9 +178,17 @@ def main(argv=None):
     p.add_argument("--resort", type=int, default=0, metavar="K",
                    help="re-sort the wavefront engines' lanes every K bounces (--accel "
                         "culled; 0 = off)")
-    p.add_argument("--cpu", action="store_true",
-                   help="run the plain PyTorch version on the CPU")
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("grad-check", help="dL/dscene sanity check", allow_abbrev=False)
+    _add_common(p)
+    p.set_defaults(fn=cmd_grad_check)
+
+    p = sub.add_parser("invert", help="inverse-rendering demo", allow_abbrev=False)
+    _add_common(p)
+    p.add_argument("--steps", type=int, default=100)
+    p.set_defaults(fn=cmd_invert)
+
     args = ap.parse_args(argv)
     args.fn(args)
 

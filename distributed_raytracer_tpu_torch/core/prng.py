@@ -3,10 +3,13 @@
 The port's copy of the partitionable threefry generator that JAX uses
 (jax/_src/prng.py: threefry_seed, _threefry_split_foldlike,
 _threefry_fold_in, _threefry_random_bits_partitionable; jax/_src/
-random.py: _uniform, _normal_real).  A key is a [2] int64 tensor on the
-CPU holding two uint32 words; split gives [n, 2].  The integer work is
-int64 masked to 32 bits (torch's uint32 lacks most operations), so
-PRNGKey, split, fold_in, random_bits and uniform equal JAX's bit for bit.
+random.py: _uniform, _normal_real, _randint).  A key is a [2] int64
+tensor on the CPU holding two uint32 words; split gives [n, 2].  The
+integer work is int64 masked to 32 bits (torch's uint32 lacks most
+operations), so PRNGKey, split, fold_in, random_bits, uniform and randint
+equal JAX's bit for bit.  The *_keys functions take a batch of keys
+[B, 2] (on any device) and do per key what the one-key functions do:
+JAX's vmap of fold_in, split, random_bits, uniform and normal.
 
 normal is sqrt(2) * erf_inv(u) with u uniform on (nextafter(-1, 0), 1),
 and erf_inv is XLA's float32 polynomial (Giles' coefficients, two
@@ -14,8 +17,9 @@ branches over w = -log1p(-x^2)), not torch.erfinv, which lands up to
 61 ulp from it; this one stays within a few ulp of JAX's (XLA:CPU may
 contract the polynomial's multiply-adds).
 
-Keys are derived on the host (a handful of Python integer operations);
-only random_bits and what is drawn from it run on the requested device.
+One key is derived on the host (a handful of Python integer
+operations); random_bits, what is drawn from it and the batched keys run
+on the requested device.
 """
 
 from __future__ import annotations
@@ -99,15 +103,19 @@ def random_bits(key: torch.Tensor, shape: Shape, device="cpu") -> torch.Tensor:
     return (b1 ^ b2).reshape(shape)
 
 
+def _uniform_of_bits(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    """23 random mantissa bits under the exponent of 1.0, minus 1, scaled
+    to [minval, maxval)."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
+    return torch.maximum(lo, f * (hi - lo) + lo)
+
+
 def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0, maxval: float = 1.0,
             device="cpu") -> torch.Tensor:
-    """jax.random.uniform in float32: 23 random mantissa bits under the
-    exponent of 1.0, minus 1, scaled to [minval, maxval)."""
-    bits = random_bits(key, shape, device)
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
-    return torch.maximum(lo, f * (hi - lo) + lo)
+    """jax.random.uniform in float32."""
+    return _uniform_of_bits(random_bits(key, shape, device), minval, maxval)
 
 
 # XLA's float32 erf_inv (ErfInv32): Horner coefficients, highest degree
@@ -132,8 +140,127 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 
+def _normal_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """sqrt(2) * erf_inv(u), u uniform on (nextafter(-1, 0), 1)."""
+    u = _uniform_of_bits(bits, _NORMAL_LO, 1.0)
+    return torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=bits.device) * erf_inv(u)
+
+
 def normal(key: torch.Tensor, shape: Shape = (), device="cpu") -> torch.Tensor:
-    """jax.random.normal in float32: sqrt(2) * erf_inv(u), u uniform on
-    (nextafter(-1, 0), 1)."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0, device)
-    return torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=device) * erf_inv(u)
+    """jax.random.normal in float32."""
+    return _normal_of_bits(random_bits(key, shape, device))
+
+
+_I32_MIN, _I32_MAX = -2**31, 2**31 - 1
+
+
+def _mul32(a, b: int):
+    """a * b mod 2^32 for a in [0, 2^32) (an int or an int64 tensor) and
+    b < 2^32, in int64 without overflow: b in 16-bit halves."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & _M32) << 16
+    return (lo + hi) & _M32
+
+
+def _bits_pair(key: torch.Tensor, shape: Shape, device):
+    """(higher, lower): random_bits of the two keys of split(key), as
+    Python ints for shape () (the seeds a tracer draws per call, without
+    a tensor operation on the host), else as tensors."""
+    if _shape(shape) == ():
+        k1, k2 = _words(key)
+        keys = [threefry2x32(k1, k2, 0, i) for i in (0, 1)]
+        return tuple(b1 ^ b2 for b1, b2 in (threefry2x32(a, b, 0, 0) for a, b in keys))
+    k1, k2 = split(key)
+    return random_bits(k1, shape, device), random_bits(k2, shape, device)
+
+
+def randint(key: torch.Tensor, shape: Shape = (), minval: int = 0, maxval: int = _I32_MAX,
+            device="cpu") -> torch.Tensor:
+    """jax.random.randint(key, shape, minval, maxval) of dtype int32 (JAX's
+    default with 64-bit types off; random.py _randint): two 32-bit draws
+    from split(key), higher and lower, folded into the unsigned span by
+    ((higher mod span) * ((2^16 mod span)^2 mod span) + (lower mod span))
+    mod span, every product and sum wrapping at 2^32; span 1 where maxval
+    <= minval.  minval and maxval are int32, as JAX requires there.
+    Returns int64 holding the int32 values."""
+    lo, hi = int(minval), int(maxval)
+    if not (_I32_MIN <= lo <= _I32_MAX and _I32_MIN <= hi <= _I32_MAX):
+        raise ValueError(f"minval {lo} and maxval {hi} must be int32")
+    span = 1 if hi <= lo else hi - lo
+    higher, lower = _bits_pair(key, shape, device)
+    mult = ((2**16 % span) ** 2 & _M32) % span
+    off = ((_mul32(higher % span, mult) + lower % span) & _M32) % span
+    # minval + int32(offset), wrapping as int32 does
+    v = (lo + off) & _M32
+    if isinstance(v, int):
+        return torch.tensor(v - 2**32 if v > _I32_MAX else v, dtype=torch.int64, device=device)
+    return torch.where(v > _I32_MAX, v - 2**32, v)
+
+
+SEED_MAX = 2**31 - 1
+CAM_FOLD = 0xCA3
+
+
+def seed_pair(key: torch.Tensor) -> Tuple[int, int]:
+    """JAX's (bounce_seed, cam_seed) of a key (mega_render_kernel.py:549-554):
+    randint(key, (), 0, 2^31 - 1) and the same of fold_in(key, 0xCA3)."""
+    return (int(randint(key, (), 0, SEED_MAX)),
+            int(randint(fold_in(key, CAM_FOLD), (), 0, SEED_MAX)))
+
+
+def bounce_seed(key: torch.Tensor) -> int:
+    """The int32 bounce seed JAX's kernel paths take from a key:
+    randint(key, (), 0, 2^31 - 1) (tapegrad.py:184, pathgrad.py:283)."""
+    return int(randint(key, (), 0, SEED_MAX))
+
+
+# ---- batches of keys: JAX's vmap over [B] keys ----
+
+def _as_words(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.int64, device=device) & _M32
+
+
+def check_key(key) -> torch.Tensor:
+    """key, if it is one key (a [2] integer tensor, as PRNGKey makes);
+    else TypeError (an int seed, say, where a key belongs)."""
+    if not (torch.is_tensor(key) and key.numel() == 2 and not key.is_floating_point()):
+        raise TypeError(f"expected a key of two uint32 words (prng.PRNGKey(seed)), got {key!r}")
+    return key
+
+
+def keys_of(key: torch.Tensor, device) -> torch.Tensor:
+    """One key as a [1, 2] batch on device."""
+    return key.reshape(1, 2).to(device)
+
+
+def fold_in_keys(keys: torch.Tensor, data) -> torch.Tensor:
+    """vmap(fold_in)(keys [B, 2], data [B] or one int) -> [B, 2]."""
+    d = _as_words(data, keys.device)
+    b1, b2 = threefry2x32(keys[:, 0], keys[:, 1], torch.zeros_like(d), d)
+    return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
+
+
+def split_keys(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """vmap(split)(keys [B, 2], num) -> [B, num, 2]."""
+    hi, lo = _iota_words(num, keys.device)
+    b1, b2 = threefry2x32(keys[:, 0:1], keys[:, 1:2], hi[None], lo[None])
+    return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits_keys(keys: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """vmap(random_bits)(keys [B, 2], shape) -> int64 [B, *shape]."""
+    shape = _shape(shape)
+    hi, lo = _iota_words(math.prod(shape), keys.device)
+    b1, b2 = threefry2x32(keys[:, 0:1], keys[:, 1:2], hi[None], lo[None])
+    return (b1 ^ b2).reshape((keys.shape[0],) + shape)
+
+
+def uniform_keys(keys: torch.Tensor, shape: Shape = (), minval: float = 0.0,
+                 maxval: float = 1.0) -> torch.Tensor:
+    """vmap(uniform)(keys [B, 2], shape) in float32 -> [B, *shape]."""
+    return _uniform_of_bits(random_bits_keys(keys, shape), minval, maxval)
+
+
+def normal_keys(keys: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """vmap(normal)(keys [B, 2], shape) in float32 -> [B, *shape]."""
+    return _normal_of_bits(random_bits_keys(keys, shape))

@@ -33,12 +33,20 @@ def uniform_range(key: torch.Tensor, lo: float, hi: float, batch_shape: Shape = 
     return prng.uniform(key, _shape(batch_shape), lo, hi, device=device)
 
 
+def _normalized(g: torch.Tensor) -> torch.Tensor:
+    norm2 = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] + g[..., 2] * g[..., 2])[..., None]
+    return g * torch.rsqrt(torch.clamp_min(norm2, 1e-20))
+
+
 def unit_vector(key: torch.Tensor, batch_shape: Shape = (), device="cpu") -> torch.Tensor:
     """Uniform direction on the unit sphere, [*batch, 3]: a normalized
     [*batch, 3] gaussian draw."""
-    g = prng.normal(key, _shape(batch_shape) + (3,), device=device)
-    norm2 = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] + g[..., 2] * g[..., 2])[..., None]
-    return g * torch.rsqrt(torch.clamp_min(norm2, 1e-20))
+    return _normalized(prng.normal(key, _shape(batch_shape) + (3,), device=device))
+
+
+def unit_vector_keys(keys: torch.Tensor) -> torch.Tensor:
+    """vmap(lambda k: unit_vector(k, ()))(keys [B, 2]) -> [B, 3]."""
+    return _normalized(prng.normal_keys(keys, (3,)))
 
 
 def in_unit_disk(key: torch.Tensor, batch_shape: Shape = (), device="cpu") -> torch.Tensor:

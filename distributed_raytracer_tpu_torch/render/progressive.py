@@ -20,11 +20,13 @@ each global sample index, so its sum does not depend on the batch split,
 and the wavefront engine renders the batch that starts at samples_done
 from fold_in(key, samples_done).  Both give JAX's noise, pixel for pixel
 to float32 rounding.  The mega and fused engines render each batch with
-two int32 seeds derived from (seed, samples_done) by numpy's SeedSequence:
-the same estimator as the JAX CLI at the same --seed, not the same bits
-(JAX derives its hash seeds from a threefry key); bit comparison with
-the JAX package is made at render_wavefront_sum_mega and
-mega_render_colors with explicit seeds.  Within the port, resume is
+JAX's two int32 seeds of the batch key k = fold_in(PRNGKey(seed),
+samples_done): randint(k) and randint(fold_in(k, 0xCA3))
+(progressive.py:458, mega_render_kernel.py:549-554; core/prng.py
+seed_pair), so the mega, walk and culled fused engines draw JAX's noise
+at the same seed; the dense fused engine keys its bounce draws by ray id
+where the TPU kernel draws on the core (ops/kernels/bounce_kernel.py), so
+it gives the same estimator with other noise.  Within the port, resume is
 bit-identical when the batch size matches the checkpoint's (any batch
 size on the scan engine).
 """
@@ -135,9 +137,9 @@ class AccumState:
 
 def batch_seeds(seed: int, samples_done: int) -> Tuple[int, int]:
     """(bounce_seed, cam_seed), non-negative int32, for the batch that
-    starts at samples_done."""
-    st = np.random.SeedSequence([seed % 2**64, samples_done]).generate_state(2)
-    return int(st[0] & 0x7FFFFFFF), int(st[1] & 0x7FFFFFFF)
+    starts at samples_done: JAX's pair of fold_in(PRNGKey(seed),
+    samples_done)."""
+    return prng.seed_pair(prng.fold_in(prng.PRNGKey(seed), samples_done))
 
 
 def render_progressive(

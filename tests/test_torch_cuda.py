@@ -16,6 +16,7 @@ from distributed_raytracer_tpu_torch import (
     make_tape_camera_walk_tracer,
     make_tape_tracer,
 )
+from distributed_raytracer_tpu_torch.core import prng
 from distributed_raytracer_tpu_torch.models import presets
 from distributed_raytracer_tpu_torch.ops.camera import Camera, camera_scalar_row
 from distributed_raytracer_tpu_torch.ops.kernels import bounce_kernel as bk
@@ -308,7 +309,8 @@ def test_ray_and_pose_tracers_on_card(card):
         p = {k: v.clone().requires_grad_() for k, v in s.diff_params().items()}
         ray_o, ray_d = o.to(dev).requires_grad_(), d.to(dev).requires_grad_()
         before = (mk.mega_forward_cuda.launches, mbk.mega_backward_cuda.launches)
-        colors = make_tape_tracer(123456, 8, device=dev)(s.with_diff_params(p), ray_o, ray_d)
+        colors = make_tape_tracer(prng.PRNGKey(4), 8, use_mega=True, mega_bwd=True,
+                                  device=dev)(s.with_diff_params(p), ray_o, ray_d)
         image_loss(colors, torch.zeros_like(colors)).backward()
         if dev.type == "cuda":
             assert (mk.mega_forward_cuda.launches, mbk.mega_backward_cuda.launches) == (
@@ -807,3 +809,105 @@ def test_persistent_mega_backward_on_card(card, grid):
     assert _col_err(got_ray, want_ray) < 1e-4
     assert torch.equal(got_ray, k8_ray) and int(st[0]) == int(k8_st[0])
     assert _col_err(got_pm[:n], k8_pm[:n]) < 1e-4
+
+
+def _grads_of(tracer, scene, o, d):
+    """(colors, the five fields' gradients) of image_loss against zeros."""
+    p = {k: v.detach().clone().requires_grad_() for k, v in scene.diff_params().items()}
+    colors = tracer(scene.with_diff_params(p), o, d)
+    image_loss(colors, torch.zeros_like(colors)).backward()
+    return colors.detach(), {k: v.grad for k, v in p.items()}
+
+
+def _fields_close(got, want, band):
+    for k, w in want.items():
+        assert float((got[k] - w).abs().max()) <= band * (float(w.abs().max()) + 1e-30), k
+
+
+@pytest.mark.parametrize("kernel", ["k11", "k10", "k12", "k13"])
+def test_host_tape_tracer_on_card(card, kernel, monkeypatch):
+    """make_tape_tracer(use_mega=False) on the card with each kernel on its
+    path (K11 as intersect_fn, K10 with use_fused, K12/K13 through
+    make_culled_intersect) against the same step with the kernel's plain
+    version on the card: colors bit for bit, one launch per tape row,
+    gradients within 1e-4 of each field's max (index_add_'s atomics)."""
+    from distributed_raytracer_tpu_torch.grad import tapegrad as ttg
+
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = presets.final_scene_camera(64).replace(max_depth=8)
+    o, d = _camera_rays(camera, card)
+    kw = dict(max_depth=8, pool=512, refill_every=2)
+    if kernel == "k11":
+        counter, kw["intersect_fn"] = ik.closest_hit_cuda, ik.closest_hit_pallas
+        plain = (ik, "closest_hit_dense", ik.closest_hit_plain)
+    elif kernel == "k10":
+        counter, kw["use_fused"] = bk.fused_bounce_cuda, True
+        plain = (ttg, "fused_bounce", bk.fused_bounce_plain)
+    else:
+        culled = build_culled_scene(scene, chunk=128)
+        scene = culled.scene
+        mode = "grid" if kernel == "k12" else "walk"
+        counter = ck.culled_closest_hit_cuda if mode == "grid" else ck.culled_closest_hit_walk_cuda
+        kw["intersect_fn"] = ck.make_culled_intersect(culled, mode=mode)
+    s = scene.to(card)
+    before = counter.launches
+    got, g_got = _grads_of(make_tape_tracer(prng.PRNGKey(1), device=card, **kw), s, o, d)
+    _, _, n_it, _ = ttg._forward_tape(s, o, d, prng.PRNGKey(1), 8, 512,
+                                      **{k: v for k, v in kw.items() if k not in (
+                                          "max_depth", "pool")})
+    assert counter.launches - before == 2 * n_it  # the step's forward, then this one
+    if kernel in ("k12", "k13"):
+        monkeypatch.setattr(ck, counter.__name__,
+                            lambda o, d, sph, bnd, order, nv, chunk, br:
+                            ck.culled_closest_hit_plain(o, d, sph, order, chunk, br))
+        kw["intersect_fn"] = ck.make_culled_intersect(culled, mode=mode)
+    else:
+        monkeypatch.setattr(plain[0], plain[1], plain[2])
+    before = counter.launches
+    want, g_want = _grads_of(make_tape_tracer(prng.PRNGKey(1), device=card, **kw), s, o, d)
+    assert counter.launches == before
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+    _fields_close(g_got, g_want, 1e-4)
+
+
+@pytest.mark.parametrize("primal", ["scan", "wavefront", "fused"])
+def test_pathgrad_tracer_on_card(card, primal):
+    """make_pathgrad_tracer on the card (K11, or K10 with primal="fused")
+    against the same tracer on the CPU: colors at the depth-8 band on 99%
+    of the rays (a path rounded apart on the card re-scatters), gradients
+    finite; the wavefront primal equals the scan primal bit for bit."""
+    from distributed_raytracer_tpu_torch import make_pathgrad_tracer
+
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = presets.final_scene_camera(64).replace(max_depth=8)
+    o, d = _camera_rays(camera, "cpu")
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        tr = make_pathgrad_tracer(prng.PRNGKey(1), 8, intersect_fn=ik.closest_hit_pallas,
+                                  primal=primal, primal_pool=1024, device=dev)
+        counter = bk.fused_bounce_cuda if primal == "fused" else ik.closest_hit_cuda
+        before = counter.launches
+        colors, grads = _grads_of(tr, scene.to(dev), o.to(dev), d.to(dev))
+        if dev.type == "cuda":
+            assert counter.launches > before
+        assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+        out[dev.type] = colors.cpu()
+    close = (out["cuda"] - out["cpu"]).abs().max(dim=1).values < 5e-4
+    assert float(close.float().mean()) >= 0.99
+    if primal == "wavefront":
+        scan = make_pathgrad_tracer(prng.PRNGKey(1), 8, intersect_fn=ik.closest_hit_pallas,
+                                    device=card)
+        assert torch.equal(scan(scene.to(card), o.to(card), d.to(card)).cpu(), out["cuda"])
+
+
+def test_mega_tracer_plain_backward_on_card(card):
+    """make_tape_tracer(use_mega=True, mega_bwd=False) (K6, then the plain
+    walk on the card) against mega_bwd=True (K6, then K7): equal colors,
+    gradients within K7's band (1e-4 of each field's max)."""
+    scene = presets.rtiow_final_scene(pad_to=512).to(card)
+    camera = presets.final_scene_camera(64).replace(max_depth=8)
+    o, d = _camera_rays(camera, card)
+    runs = [_grads_of(make_tape_tracer(prng.PRNGKey(3), 8, use_mega=True, mega_bwd=mb,
+                                       device=card), scene, o, d) for mb in (False, True)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    _fields_close(runs[0][1], runs[1][1], 1e-4)

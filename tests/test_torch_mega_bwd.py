@@ -30,6 +30,7 @@ from distributed_raytracer_tpu.ops.pallas.mega_bwd_kernel import mega_backward a
 from distributed_raytracer_tpu.ops.pallas.mega_kernel import mega_forward as jax_forward
 from distributed_raytracer_tpu.ops.pallas.mega_kernel import scene_sweep_arrays as jax_arrays
 from distributed_raytracer_tpu_torch import make_tape_camera_tracer, make_tape_tracer
+from distributed_raytracer_tpu_torch.core import prng
 from distributed_raytracer_tpu_torch.grad.tapegrad import replay_from_tape
 from distributed_raytracer_tpu_torch.ops.camera import camera_scalar_row, make_camera
 from distributed_raytracer_tpu_torch.ops.kernels import mega_bwd_kernel as mbk
@@ -114,7 +115,8 @@ def case():
 def _port_tracer_grads(c, g, ray_grads=True):
     """The port's tracer on the CPU: colors, g_pm [n, 9] and the ray
     cotangents [R, 6] of sum(colors * g)."""
-    tr = make_tape_tracer(c["seed"], c["cam"].max_depth, ray_grads=ray_grads, device="cpu")
+    tr = make_tape_tracer(prng.PRNGKey(2), c["cam"].max_depth, use_mega=True, mega_bwd=True,
+                          ray_grads=ray_grads, device="cpu")
     p = {k: getattr(c["ts"], k).clone().requires_grad_() for k in FIELDS}
     o = torch.from_numpy(c["o"]).requires_grad_()
     d = torch.from_numpy(c["d"]).requires_grad_()
@@ -164,16 +166,18 @@ def test_ray_mode_equals_camera_mode():
     row = camera_scalar_row(tc)
     r = tc.num_pixels
     pix = torch.arange(r)
-    o, d = mrk.camera_rays_host(row, pix, pix, 987654, tc.image_width)
-    ray = mk.mega_forward(cols, attrs, o, d, bounce_seed=123456, max_depth=tc.max_depth)
-    cam_ = mk.mega_forward_camera(cols, attrs, row, None, bounce_seed=123456, cam_seed=987654,
+    key = prng.PRNGKey(5)
+    bs, cs = prng.seed_pair(key)
+    o, d = mrk.camera_rays_host(row, pix, pix, cs, tc.image_width)
+    ray = mk.mega_forward(cols, attrs, o, d, bounce_seed=bs, max_depth=tc.max_depth)
+    cam_ = mk.mega_forward_camera(cols, attrs, row, None, bounce_seed=bs, cam_seed=cs,
                                   pix0=0, n_valid=r, w=tc.image_width, max_depth=tc.max_depth)
     assert torch.equal(ray.lengths, cam_.lengths)
     assert torch.equal(_written(ray.tape, ray.lengths).view(torch.int32),
                        _written(cam_.tape, cam_.lengths).view(torch.int32))
     assert torch.equal(ray.colors, cam_.colors)
-    tracer = make_tape_tracer(123456, tc.max_depth, device="cpu")
-    camera_tracer = make_tape_camera_tracer(tc, 123456, 987654, iota_pix=True, device="cpu")
+    tracer = make_tape_tracer(key, tc.max_depth, use_mega=True, mega_bwd=True, device="cpu")
+    camera_tracer = make_tape_camera_tracer(tc, bs, cs, iota_pix=True, device="cpu")
     assert torch.equal(tracer(ts, o, d), camera_tracer(ts, pix))
 
 
@@ -257,7 +261,7 @@ def test_ray_grads_off_gives_zero_ray_grads(case):
 
 def test_tracer_checks_shapes(case):
     c = case
-    tr = make_tape_tracer(1, 2, device="cpu")
+    tr = make_tape_tracer(prng.PRNGKey(1), 2, use_mega=True, mega_bwd=True, device="cpu")
     with pytest.raises(ValueError, match="ray_o and ray_d"):
         tr(c["ts"], torch.zeros(4, 3), torch.zeros(5, 3))
     with pytest.raises(ValueError, match="both ray_o and ray_d"):

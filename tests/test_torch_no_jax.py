@@ -12,6 +12,7 @@ from distributed_raytracer_tpu_torch import (
     make_tape_camera_tracer,
     make_tape_tracer,
 )
+from distributed_raytracer_tpu_torch.core import prng
 from distributed_raytracer_tpu_torch.ops.camera import make_camera
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -40,7 +41,7 @@ def test_port_imports_no_jax():
               "ops.kernels.culled_bounce_kernel", "render.order", "render.wavefront",
               "core.prng", "core.rng", "core.interval", "core.ray", "ops.intersect",
               "ops.materials", "ops.trace", "ops.kernels.intersect_kernel",
-              "render.renderer"):
+              "render.renderer", "grad.pathgrad", "render.progressive"):
         assert f"distributed_raytracer_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -77,8 +78,32 @@ def test_tracer_defaults_to_the_card():
 @pytest.mark.parametrize("factory", ["ray", "pose"])
 def test_ray_and_pose_tracers_default_to_the_card(factory):
     camera = make_camera(image_width=4)
-    make = ((lambda: make_tape_tracer(1, 2)) if factory == "ray"
+    make = ((lambda: make_tape_tracer(prng.PRNGKey(1), 2, use_mega=True, mega_bwd=True))
+            if factory == "ray"
             else (lambda: make_tape_camera_pose_tracer(camera, 1, 2)))
+    if torch.cuda.is_available():
+        make()
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
+@pytest.mark.parametrize("entry", ["host_tape", "pathgrad", "image_grad", "scene_grads",
+                                   "inverse"])
+def test_gradient_entry_points_default_to_the_card(entry):
+    import distributed_raytracer_tpu_torch as dt
+    from distributed_raytracer_tpu_torch.models.presets import config1
+
+    scene, _ = config1()
+    camera = make_camera(image_width=4, max_depth=1)
+    target = torch.zeros(camera.num_pixels, 3)
+    make = {
+        "host_tape": lambda: dt.make_tape_tracer(prng.PRNGKey(1), 2),
+        "pathgrad": lambda: dt.make_pathgrad_tracer(prng.PRNGKey(1), 2),
+        "image_grad": lambda: dt.make_image_grad_fn(camera),
+        "scene_grads": lambda: dt.scene_grads(scene, camera, prng.PRNGKey(1), [0], target),
+        "inverse": lambda: dt.InverseRenderer(scene, camera, target, engine="tape"),
+    }[entry]
     if torch.cuda.is_available():
         make()
     else:
