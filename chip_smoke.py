@@ -34,8 +34,14 @@ included, also on a pool batch cut to an odd lane count, and their group
 lane use (slot tests over the slot-test lanes the groups issue) and
 launch shape are printed.  Kernels shorter than their wrapper's host work
 (K10-K14) are timed with the stream held while their launches are queued
-(kernel_ms).  Any failed phase raises, so the exit code is nonzero and no
-result line is printed.  Without a CUDA card it exits with code 2.
+(kernel_ms).  Then the distributed layer (parallel/): the ray-sharded
+paths run every rank's shard in turn in one process (K5 at worlds 4 and 7,
+the camera and walk training steps, the fused engine), render-dist runs
+at world size 1 on NCCL, and the scene-sharded render runs as four gloo
+processes on the card (this script with --scene-shard-worker); and a
+scene file exported by the CLI renders the preset's image.  Any failed
+phase raises, so the exit code is nonzero and no result line is printed.
+Without a CUDA card it exits with code 2.
 
     python3 chip_smoke.py --record out/chip_smoke.json
 
@@ -2247,13 +2253,423 @@ def check_training_paths(dev, presets, final, cam_main) -> dict:
     return dict(training_launches=launches, record=rec)
 
 
+# the scene-sharded phase's mesh (2 ray shards x 2 scene shards) and the
+# pool batch of rays its closest hit is held on
+SHARD_RAYS, SHARD_SCENE = 2, 2
+SHARD_POOL = 16384
+# seconds a worker of the scene-sharded phase may take
+WORKER_TIMEOUT_S = 300
+# the ray-sharded phases' world sizes: 4 as asked of the main path, 7
+# because it does not divide 1200x675 (the last shard is short)
+DP_WORLDS = (4, 7)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_distributed_path(dev, presets, final, cam_main, k5_ms: float,
+                           main_ms_per_sample: float) -> dict:
+    """Phases 35-39: the distributed layer (parallel/) on the card.
+    (a) make_mega_dp_render (K5 at each shard's pix0, n_valid, n_cap and
+    n_global) at worlds 4 and 7, rank by rank in one process, equal to the
+    single-device render_wavefront_sum_mega sum bit for bit, a short shard
+    held against K5's plain version; then render-dist --engine mega at
+    world size 1 on NCCL through the CLI, its PPM equal byte for byte to the
+    single-device sum's at the seeds of PRNGKey(0).  (b) the camera dp
+    tracer (K6, K8) on the 810,000-pixel step and the walk dp tracer (K9
+    record, K8) on the 8,192-sphere field, colors bit for bit with the
+    single-device tracers, the summed gradients in TRAIN_GRAD_BAND.  (c)
+    make_fused_dp_render (K10 dense, K14 culled) at world 4, each shard
+    equal to a single-device run at its fold_in seeds.  (d) the
+    scene-sharded render, 2 x 2 gloo processes on this card (K11 the local
+    sweep).  (e) export-scene, then render --scene: the preset's image."""
+    from distributed_raytracer_tpu_torch import cli
+    from distributed_raytracer_tpu_torch.core import prng
+    from distributed_raytracer_tpu_torch.grad.diff_render import image_loss
+    from distributed_raytracer_tpu_torch.grad.tapegrad import (
+        make_tape_camera_tracer,
+        make_tape_camera_walk_tracer,
+    )
+    from distributed_raytracer_tpu_torch.ops.kernels import bounce_kernel as bk
+    from distributed_raytracer_tpu_torch.ops.kernels import culled_bounce_kernel as cb
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_render_kernel as mrk
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_bwd_kernel as wbk
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_walk_kernel as mwk
+    from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import build_culled_scene
+    from distributed_raytracer_tpu_torch.parallel import (
+        Mesh,
+        make_fused_dp_render,
+        make_mega_dp_render,
+        make_tape_camera_dp_tracer,
+        make_tape_camera_walk_dp_tracer,
+    )
+    from distributed_raytracer_tpu_torch.parallel.sharded import shard_size, shard_span
+    from distributed_raytracer_tpu_torch.render.image import write_ppm
+    from distributed_raytracer_tpu_torch.render.wavefront import render_wavefront_sum_fused
+
+    record, dp_launches, out = {}, {}, {}
+    scene5, cam5 = presets.config5()
+    n_pix = cam5.num_pixels
+
+    # --- phase 35 (a): the main path sharded (K5) ---
+    bs, cs = prng.seed_pair(prng.PRNGKey(0))  # render-dist's seeds of PRNGKey(0)
+    mrk.mega_render_cuda.launches = 0
+    whole = mrk.render_wavefront_sum_mega(scene5, cam5, 4, bs, cs, device=dev)
+    torch.cuda.synchronize()
+    for world in DP_WORLDS:
+        dp = make_mega_dp_render(Mesh(n_rays=world), cam5)
+        mrk.mega_render_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        parts = [dp.local(scene5, bs, cs, range(4), r) for r in range(world)]
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        launches = mrk.mega_render_cuda.launches
+        got = torch.cat(parts)
+        s_loc = shard_size(n_pix, world)
+        log(f"[dist] K5 dp world {world} (shards of {s_loc:,}, last "
+            f"{shard_span(n_pix, s_loc, world - 1)[1]:,}): {launches} launches, "
+            f"{wall / 4:.2f} ms/sample wall rank by rank")
+        require(launches == 4 * world, f"K5 dp world {world}: {launches} launches")
+        require(torch.equal(got[:n_pix], whole) and not got[n_pix:].any(),
+                f"K5 dp world {world}: the shards differ from the single-device sum")
+        dp_launches[f"mega_dp_render_world{world}_4spp"] = launches
+    log("[dist] K5 shards at worlds 4 and 7 concatenate to render_wavefront_sum_mega's "
+        "4-spp sum bit for bit")
+
+    # a shard launch's time against the whole image's, and the short shard
+    # (nonzero pix0, n_valid < n_cap) against K5's plain version
+    cols, attrs, cam_row = mrk.prepare(scene5, cam5, dev)
+    shard_ms = {}
+    for world, rank in ((4, 0), (4, 3), (7, 6)):
+        s_loc = shard_size(n_pix, world)
+        pix0, n_valid = shard_span(n_pix, s_loc, rank)
+        kw = dict(bounce_seed=bs, cam_seed=cs, rid_base=n_pix, pix0=pix0, n_valid=n_valid,
+                  n_cap=s_loc, w=cam5.image_width, max_depth=cam5.max_depth)
+        shard_ms[f"world{world}_rank{rank}"] = cuda_ms(
+            lambda: mrk.mega_render_cuda(cols, attrs, cam_row, **kw), 5)
+        if (world, rank) == (7, 6):
+            k, kb = mrk.mega_render_cuda(cols, attrs, cam_row, **kw)
+            p, pb = mrk.mega_render_plain(cols, attrs, cam_row, **kw)
+            require(torch.equal(k, p) and int(kb) == int(pb),
+                    "K5 on the short shard (world 7, rank 6) differs from its plain version")
+            log(f"[dist] K5 on the short shard (pix0 {pix0:,}, n_valid {n_valid:,} < n_cap "
+                f"{s_loc:,}, sample 1) == plain bit for bit, bounces {int(kb):,}")
+    log(f"[time] K5 per shard launch (ms): {shard_ms}; whole image {k5_ms:.3f} ms")
+    record["k5_shard_ms"] = shard_ms
+
+    # render through the CLI in this process, for its wall beside render-dist's
+    t0 = time.time()
+    cli.main(["render", "--config", "config5", "--spp", "4", "--batch", "3", "--out",
+              str(ROOT / "build" / "smoke_render4.ppm")])
+    torch.cuda.synchronize()
+    render_wall = (time.time() - t0) * 1e3
+    # render-dist through the CLI, world size 1 on NCCL, in this process
+    out_dist = ROOT / "build" / "smoke_dist.ppm"
+    ref_ppm = ROOT / "build" / "smoke_dist_ref.ppm"
+    write_ppm(str(ref_ppm), (whole.cpu().numpy() / 4).reshape(cam5.image_height,
+                                                               cam5.image_width, 3))
+    mrk.mega_render_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cli.main(["render-dist", "--config", "config5", "--spp", "4", "--batch", "3", "--engine",
+              "mega", "--coordinator", f"tcp://localhost:{free_port()}", "--num-processes",
+              "1", "--process-id", "0", "--out", str(out_dist)])
+    torch.cuda.synchronize()
+    dist_wall = (time.time() - t0) * 1e3
+    launches = mrk.mega_render_cuda.launches
+    require(launches == 4, f"render-dist launched K5 {launches} times, not 4")
+    require(out_dist.read_bytes() == ref_ppm.read_bytes(),
+            "render-dist's image differs from the single-device sum's")
+    dp_launches["render_dist_world1_4spp"] = launches
+    record["render_dist_ms_per_sample"] = dist_wall / 4
+    record["render_cli_ms_per_sample"] = render_wall / 4
+    log(f"[dist] render-dist world 1 (NCCL) config5 4 spp, batches 3+1: PPM == the single-"
+        f"device sum's byte for byte; {launches} K5 launches; {dist_wall / 4:.2f} ms/sample "
+        f"wall, set-up included (render through the CLI in this process "
+        f"{render_wall / 4:.2f}; render_progressive's loop {main_ms_per_sample:.2f})")
+    out["mega_render"] = dp_launches
+
+    # --- phase 36 (b): training sharded (K6, K8; K9 record, K8) ---
+    def dp_step(label, single, dp, scene, world, n, counters):
+        target = torch.zeros(n, 3, device=dev)
+        p = {k: v.to(dev).clone().requires_grad_() for k, v in scene.diff_params().items()}
+        want = single(scene.with_diff_params(p), torch.arange(n))
+        image_loss(want, target).backward()
+        g_want = {k: v.grad for k, v in p.items()}
+        q = {k: v.to(dev).clone().requires_grad_() for k, v in scene.diff_params().items()}
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        parts = [dp.local(scene.with_diff_params(q), r) for r in range(world)]
+        loss = sum((x ** 2).sum() for x in parts) / (3.0 * n)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        launches = [c.launches for c in counters]
+        got = torch.cat(parts).detach()
+        require(launches == [world] * len(counters), f"{label}: launches {launches}")
+        require(torch.equal(got[:n], want.detach()) and not got[n:].any(),
+                f"{label}: the shards' colors differ from the single-device tracer's")
+        worst = grad_band(label, {k: v.grad for k, v in q.items()}, g_want, TRAIN_GRAD_BAND)
+        log(f"[dist] {label}: colors == the single-device tracer's bit for bit, {launches} "
+            f"launches, {wall:.1f} ms wall for the {world} ranks in turn")
+        return dict(launches=launches, wall_ms=wall, grad_err=worst)
+
+    for world in DP_WORLDS:
+        single = make_tape_camera_tracer(cam_main, BOUNCE_SEED, CAM_SEED, iota_pix=True)
+        dp = make_tape_camera_dp_tracer(Mesh(n_rays=world), cam_main, BOUNCE_SEED, CAM_SEED)
+        r = dp_step(f"camera dp world {world} (final 1200x675 depth 50)", single, dp, final,
+                    world, cam_main.num_pixels,
+                    [mk.mega_forward_camera_cuda, wbk.mega_walk_backward_cuda])
+        record[f"camera_dp_world{world}"] = r
+    out["mega_forward"] = out["mega_walk_bwd"] = {
+        f"camera_dp_step_world{w}": w for w in DP_WORLDS}
+    field = presets.random_sphere_field(8192, seed=5, extent=30.0)
+    cam_big = walk_camera(presets, 1024)
+    single = make_tape_camera_walk_tracer(cam_big, BOUNCE_SEED, CAM_SEED, field, chunk=WALK_CHUNK)
+    dp = make_tape_camera_walk_dp_tracer(Mesh(n_rays=4), cam_big, BOUNCE_SEED, CAM_SEED, field,
+                                         chunk=WALK_CHUNK)
+    record["walk_dp_world4"] = dp_step(
+        "walk dp world 4 (field 1024x576 depth 8)", single, dp, field, 4, cam_big.num_pixels,
+        [mwk.mega_walk_forward_camera_cuda, wbk.mega_walk_backward_cuda])
+    out["mega_walk_record"] = out["mega_walk_bwd_global"] = {"walk_dp_step_world4": 4}
+
+    # --- phase 37 (c): the fused engine sharded (K10 dense, K14 culled), 1 spp ---
+    key = prng.PRNGKey(0)
+    culled = build_culled_scene(final, chunk=FUSED_CHUNK)
+    for name, counter, scene, cul in (("fused_bounce", bk.fused_bounce_cuda, final, None),
+                                      ("culled_fused_bounce", cb.culled_fused_bounce_cuda,
+                                       culled.scene, culled)):
+        dp = make_fused_dp_render(Mesh(n_rays=4), cam_main, culled=cul)
+        counter.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        parts = [dp.local(scene, key, 1, r) for r in range(4)]
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        launches = counter.launches
+        s_loc = shard_size(n_pix, 4)
+        ids = torch.arange(n_pix, device=dev)
+        for r in range(4):
+            want = render_wavefront_sum_fused(
+                scene, cam_main, 1, *prng.seed_pair(prng.fold_in(key, r)),
+                pool_size=min(16384, s_loc), pixel_ids=ids[r * s_loc:(r + 1) * s_loc],
+                culled=cul)
+            require(torch.equal(parts[r], want), f"fused dp ({name}) rank {r} differs from the "
+                    "single-device run at its fold_in seeds")
+        img = torch.cat(parts)
+        require(bool(torch.isfinite(img).all()) and launches >= 4, f"fused dp ({name}): "
+                f"{launches} launches")
+        log(f"[dist] fused dp world 4 ({name}, final 1200x675 depth 50, 1 spp): each shard == "
+            f"the single-device run at fold_in(key, rank)'s seeds bit for bit; {launches} "
+            f"launches, {wall:.0f} ms wall for the 4 ranks in turn")
+        record[f"fused_dp_{name}"] = dict(launches=launches, wall_ms=wall)
+        out[name] = {"fused_dp_world4_1spp": launches}
+
+    # --- phase 38 (d): scene-sharded, 2 x 2 gloo processes on this card (K11) ---
+    init = ROOT / "build" / "smoke_gloo_init"
+    outdir = ROOT / "build" / "smoke_gloo"
+    outdir.mkdir(parents=True, exist_ok=True)
+    for f in [init, *outdir.glob("*.json")]:
+        if f.exists():
+            f.unlink()
+    world = SHARD_RAYS * SHARD_SCENE
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--scene-shard-worker",
+                               str(r), "--worker-init", str(init), "--worker-out", str(outdir)],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    results = []
+    try:
+        for pr in procs:
+            results.append(pr.communicate(timeout=WORKER_TIMEOUT_S))
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+    for r, (pr, (so, se)) in enumerate(zip(procs, results)):
+        for line in so.strip().splitlines():
+            log(f"[shard {r}] {line}")
+        require(pr.returncode == 0, f"scene-sharded worker {r} exited {pr.returncode}: "
+                f"{se[-3000:]}")
+    ranks = [json.loads((outdir / f"rank{r}.json").read_text()) for r in range(world)]
+    log(f"[dist] scene-sharded 2 x 2 on gloo: {time.time() - t0:.1f} s for the 4 workers")
+    k11_launches = [x["k11_launches_render"] for x in ranks]
+    require(all(v >= 1 for v in k11_launches), f"the scene-sharded render skipped K11: "
+            f"{k11_launches}")
+    record["scene_sharded"] = ranks
+    out["closest_hit"] = {"scene_sharded_render_per_rank": k11_launches}
+
+    # --- phase 39 (e): scene files: export-scene, then render --scene ---
+    scene_file = ROOT / "build" / "smoke_scene5.json"
+    cli.main(["export-scene", "--config", "config5", str(scene_file)])
+    out_scene = ROOT / "build" / "smoke_scene.ppm"
+    mrk.mega_render_cuda.launches = 0
+    cli.main(["render", "--scene", str(scene_file), "--spp", "2", "--out", str(out_scene)])
+    require(mrk.mega_render_cuda.launches >= 1, "render --scene did not launch K5")
+    require(out_scene.read_bytes() == (ROOT / "build" / "smoke.ppm").read_bytes(),
+            "render --scene of the exported config5 differs from the preset's render")
+    log("[dist] export-scene config5 (JSON, padding dropped), then render --scene: the PPM "
+        "equals phase 4's render of the preset byte for byte")
+    return dict(dp_launches=out, record=record)
+
+
+def scene_shard_worker(rank: int, init: str, outdir: str) -> int:
+    """One rank of phase 38: a 2 x 2 (rays x scene) mesh on gloo over this
+    card.  Probes which gloo collectives take CUDA tensors, then holds
+    closest_hit_sharded (K11 on the rank's block) to the dense K11 hit on
+    the padded unsplit scene, t and idx bit for bit, on a pool batch of
+    final-scene camera rays and on random rays over the 8,192-sphere
+    field; then one sample of make_scene_sharded_render at 1200x675 depth
+    50 against the replicated trace of the rank's rays on the same keys
+    (pixel band 1e-4), every K11 launch at the shard's shape held against
+    its plain version.  Writes its numbers to outdir/rank{rank}.json."""
+    import torch.distributed as tdist
+
+    from distributed_raytracer_tpu_torch.core import prng
+    from distributed_raytracer_tpu_torch.models import presets
+    from distributed_raytracer_tpu_torch.ops.camera import camera_scalar_row, generate_rays
+    from distributed_raytracer_tpu_torch.ops.kernels import intersect_kernel as ik
+    from distributed_raytracer_tpu_torch.ops.kernels.mega_render_kernel import camera_rays_host
+    from distributed_raytracer_tpu_torch.ops.trace import trace_rays_fast
+    from distributed_raytracer_tpu_torch.parallel import make_mesh, multihost, shard_scene
+    from distributed_raytracer_tpu_torch.parallel.scene_sharded import (
+        closest_hit_sharded,
+        make_scene_sharded_render,
+        scene_block,
+    )
+
+    dev = torch.device("cuda")
+    world = SHARD_RAYS * SHARD_SCENE
+    multihost.initialize(f"file://{init}", world, rank, device=dev, backend="gloo")
+    res = {"rank": rank}
+    try:
+        # which collectives the installed gloo runs on CUDA tensors
+        probe = {}
+        x = torch.full((4,), float(rank + 1), device=dev)
+        for name, fn in (("all_reduce", lambda: tdist.all_reduce(x.clone())),
+                         ("broadcast", lambda: tdist.broadcast(x.clone(), src=0)),
+                         ("all_gather", lambda: tdist.all_gather(
+                             [torch.empty_like(x) for _ in range(world)], x))):
+            try:
+                fn()
+                probe[name] = "ok"
+            except Exception as e:  # a missing collective is the answer the probe records
+                probe[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        torch.cuda.synchronize()
+        res["gloo_cuda_collectives"] = probe
+        print(f"gloo collectives on CUDA tensors: {probe}", flush=True)
+        require(probe["all_reduce"] == "ok", f"gloo cannot all_reduce CUDA tensors: {probe}")
+
+        mesh = make_mesh(n_rays=SHARD_RAYS, n_scene=SHARD_SCENE)
+        checks = {"launches": 0}
+
+        def checked_k11(o, d, scene):
+            """K11 on the block (closest_hit_pallas), each launch held
+            against its plain version on the same inputs, bit for bit."""
+            hit = ik.closest_hit_pallas(o, d, scene)
+            t, idx = ik.closest_hit_plain(o.contiguous(), d.contiguous(),
+                                          ik.sphere_pack(scene.centers, scene.radii))
+            require(torch.equal(hit.t, t) and torch.equal(hit.idx, idx),
+                    f"K11 at shard shape {tuple(o.shape)} x {scene.num_spheres} differs from "
+                    "plain")
+            checks["launches"] += 1
+            return hit
+
+        final = presets.rtiow_final_scene(seed=0, pad_to=512)
+        cam = presets.final_scene_camera(1200)
+        field = presets.random_sphere_field(8192, seed=5, extent=30.0)
+        g = torch.Generator().manual_seed(11)
+        pix = torch.randperm(cam.num_pixels, generator=g)[:SHARD_POOL].to(dev)
+        o_f, d_f = camera_rays_host(camera_scalar_row(cam).to(dev), pix, pix, CAM_SEED,
+                                    cam.image_width)
+        o_r = torch.stack([torch.rand(SHARD_POOL, generator=g) * 60 - 30,
+                           torch.rand(SHARD_POOL, generator=g) * 4 + 1,
+                           torch.rand(SHARD_POOL, generator=g) * 60 - 30], -1).to(dev)
+        d_r = torch.randn(SHARD_POOL, 3, generator=g).to(dev)
+        for label, scene, o, d in (("final", final, o_f, d_f), ("field", field, o_r, d_r)):
+            padded = shard_scene(scene.to(dev), SHARD_SCENE)
+            block = scene_block(padded, mesh)
+            with torch.no_grad():
+                hit = closest_hit_sharded(o.contiguous(), d.contiguous(), block, mesh,
+                                          checked_k11)
+                dense = ik.closest_hit_pallas(o.contiguous(), d.contiguous(), padded)
+            same = (torch.equal(hit.t.view(torch.int32), dense.t.view(torch.int32))
+                    and torch.equal(hit.idx, dense.idx))
+            res[f"hit_{label}"] = dict(rays=SHARD_POOL, spheres=padded.num_spheres,
+                                       block=block.num_spheres, hits=int(hit.hit.sum()),
+                                       bit_for_bit=same)
+            print(f"closest_hit_sharded on {label} ({padded.num_spheres} spheres, blocks of "
+                  f"{block.num_spheres}, {SHARD_POOL:,} rays): t and idx == the dense K11 hit "
+                  f"bit for bit: {same}", flush=True)
+            require(same, f"closest_hit_sharded on {label} differs from the dense K11 hit")
+
+        # one sample of the 2D render at the main path
+        padded = shard_scene(final.to(dev), SHARD_SCENE)
+        n = cam.num_pixels
+        ids = torch.arange(n, device=dev)
+        render = make_scene_sharded_render(mesh, cam, local_intersect=checked_k11)
+        key = prng.PRNGKey(0)
+        ik.closest_hit_cuda.launches = 0
+        checks["launches"] = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = render(padded, key, [0], ids)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        res["k11_launches_render"] = ik.closest_hit_cuda.launches
+        res["k11_checked"] = checks["launches"]
+        res["render_wall_ms"] = wall
+        require(res["k11_launches_render"] == res["k11_checked"] >= 1,
+                f"K11 launches {res['k11_launches_render']} vs checked {res['k11_checked']}")
+        require(got.shape == (n // SHARD_RAYS, 3) and bool(torch.isfinite(got).all()),
+                "the scene-sharded render is not finite")
+        if mesh.scene_index == 0:  # one rank of each row holds its rays to the reference
+            s = n // SHARD_RAYS
+            tids = ids[mesh.rays_index * s:(mesh.rays_index + 1) * s]
+            k_cam, k_trace = prng.split(prng.fold_in(prng.fold_in(key, 0), mesh.rays_index))
+            o, d = generate_rays(cam.to(dev), tids % cam.image_width, tids // cam.image_width,
+                                 key=k_cam)
+            want = trace_rays_fast(padded, o, d, k_trace, cam.max_depth,
+                                   intersect_fn=ik.closest_hit_pallas)
+            diff = (got - want).abs().max(dim=1).values
+            res["render_max_err"] = float(diff.max())
+            res["render_bit_for_bit_share"] = float((got == want).all(dim=1).float().mean())
+            print(f"scene-sharded sample 1200x675 depth 50, rays shard {mesh.rays_index}: max "
+                  f"|diff| {res['render_max_err']:.3e} vs the replicated trace, "
+                  f"{res['render_bit_for_bit_share']:.4%} of pixels bit for bit; "
+                  f"{res['k11_launches_render']} K11 launches each == plain; {wall:.0f} ms",
+                  flush=True)
+            require(res["render_max_err"] <= 1e-4, "the scene-sharded render parts from the "
+                    f"replicated trace by {res['render_max_err']:.3e}")
+        Path(outdir, f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        multihost.shutdown()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, help="write the run's numbers to this JSON file")
+    # one rank of phase 38's gloo job (started by the run itself)
+    ap.add_argument("--scene-shard-worker", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--worker-init", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--worker-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.scene_shard_worker is not None:
+        return scene_shard_worker(args.scene_shard_worker, args.worker_init, args.worker_out)
     from distributed_raytracer_tpu_torch.models import presets
     from distributed_raytracer_tpu_torch.ops.kernels import _build
     from distributed_raytracer_tpu_torch.ops.kernels import mega_kernel as mk
@@ -2405,6 +2821,9 @@ def main() -> int:
     # --- phases 30-34: the training paths of the host-loop tape tracer, the
     # path-replay tracer and diff_render (K10, K11, K12, K13) ---
     train = check_training_paths(dev, presets, final, cam_main)
+    # --- phases 35-39: the distributed layer (K5, K6, K8, K9, K10, K14, K11 on shards)
+    # and scene files ---
+    dist = check_distributed_path(dev, presets, final, cam_main, ms, wall * 1e3 / 4)
 
     # --- phase 9: the kernel line, then the device line last ---
     # K5 at the main-path shape traced the rays K6 recorded (sample 0, the
@@ -2418,6 +2837,7 @@ def main() -> int:
         plain_ms=plain_ms, bound_ms=max(ops_s, bytes_s) * 1e3,
         bound_by="operations" if ops_s >= bytes_s else "bytes", library_ms=None,
         library_note=NO_LIBRARY["mega_render"], lane_use=k5_lane,
+        dp_launches=dist["dp_launches"]["mega_render"],
         # the same rays as K6's at the main path (sample 0), so the same lengths
         lane_use_static=grad["mega_forward"]["lane_use_static"],
     )]
@@ -2441,6 +2861,9 @@ def main() -> int:
         if name in train["training_launches"]:
             # the same kernel's launches on each training path (phases 30-34)
             kernels[-1]["training_launches"] = train["training_launches"][name]
+        if name in dist["dp_launches"]:
+            # its launches on the distributed paths (phases 35-38)
+            kernels[-1]["dp_launches"] = dist["dp_launches"][name]
         for key in ("max_norm_err",  # g_pm's columns span orders of magnitude
                     # the persistent kernels (K5-K9): lane use, the walk's sweep lane use,
                     # one thread per ray in static warps of 32
@@ -2461,7 +2884,7 @@ def main() -> int:
                       main_path_ms_per_sample=wall * 1e3 / 4, gradient_path=grad["record"],
                       walk_path=walk["record"], ray_pose_path=rays["record"],
                       fused_path=fused["record"], reference_path=ref["record"],
-                      training_paths=train["record"],
+                      training_paths=train["record"], distributed_paths=dist["record"],
                       seconds=time.time() - t_start)
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

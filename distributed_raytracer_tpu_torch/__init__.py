@@ -5,7 +5,9 @@ A package of its own beside the JAX one: it imports torch and numpy,
 never JAX or the JAX package.  Plain tensor code is PyTorch; every TPU
 kernel on a ported path is a CUDA kernel written for Hopper (sm_90a),
 with a plain PyTorch version beside it that runs on CPU tensors.  Entry
-points run on the CUDA card unless the caller asks for the CPU.
+points run on the CUDA card unless the caller asks for the CPU.  Scene
+files are models/scene_io.py's; the distributed layer, on
+torch.distributed, is the subpackage parallel/.
 """
 
 from distributed_raytracer_tpu_torch.grad.diff_render import (
@@ -32,6 +34,7 @@ from distributed_raytracer_tpu_torch.models.scene import (
     Scene,
     SceneBuilder,
 )
+from distributed_raytracer_tpu_torch.models.scene_io import load_scene, save_scene
 from distributed_raytracer_tpu_torch.ops.camera import Camera, make_camera
 from distributed_raytracer_tpu_torch.ops.kernels.mega_walk_kernel import (
     render_wavefront_sum_mega_walk,
@@ -44,6 +47,8 @@ __all__ = [
     "SceneBuilder",
     "Camera",
     "make_camera",
+    "load_scene",
+    "save_scene",
     "make_tape_camera_tracer",
     "make_tape_camera_walk_tracer",
     "make_tape_tracer",

@@ -79,9 +79,9 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return _key(*threefry2x32(k1, k2, 0, int(data) & _M32))
 
 
-def _iota_words(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The 64-bit iota 0..n-1 as its (hi, lo) uint32 words."""
-    iota = torch.arange(n, dtype=torch.int64, device=device)
+def _iota_words(n: int, device, offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 64-bit iota offset..offset+n-1 as its (hi, lo) uint32 words."""
+    iota = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return iota >> 32, iota & _M32
 
 
@@ -93,12 +93,16 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape: Shape, device="cpu") -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape: Shape, device="cpu", offset: int = 0) -> torch.Tensor:
     """32 random bits per element of shape, as int64 in [0, 2^32): the
-    hash of the flattened shape's 64-bit iota, its two words XORed."""
+    hash of the flattened shape's 64-bit iota, its two words XORed.  offset
+    starts the iota there: the elements offset.. of a larger draw from the
+    same key (each element's bits depend on its flat index alone, as in
+    JAX's partitionable threefry), which is how a shard of rows draws its
+    part of the whole batch's draws."""
     shape = _shape(shape)
     k1, k2 = _words(key)
-    hi, lo = _iota_words(math.prod(shape), device)
+    hi, lo = _iota_words(math.prod(shape), device, offset)
     b1, b2 = threefry2x32(k1, k2, hi, lo)
     return (b1 ^ b2).reshape(shape)
 
@@ -113,9 +117,9 @@ def _uniform_of_bits(bits: torch.Tensor, minval: float, maxval: float) -> torch.
 
 
 def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0, maxval: float = 1.0,
-            device="cpu") -> torch.Tensor:
-    """jax.random.uniform in float32."""
-    return _uniform_of_bits(random_bits(key, shape, device), minval, maxval)
+            device="cpu", offset: int = 0) -> torch.Tensor:
+    """jax.random.uniform in float32 (offset: as random_bits)."""
+    return _uniform_of_bits(random_bits(key, shape, device, offset), minval, maxval)
 
 
 # XLA's float32 erf_inv (ErfInv32): Horner coefficients, highest degree
@@ -146,9 +150,9 @@ def _normal_of_bits(bits: torch.Tensor) -> torch.Tensor:
     return torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=bits.device) * erf_inv(u)
 
 
-def normal(key: torch.Tensor, shape: Shape = (), device="cpu") -> torch.Tensor:
-    """jax.random.normal in float32."""
-    return _normal_of_bits(random_bits(key, shape, device))
+def normal(key: torch.Tensor, shape: Shape = (), device="cpu", offset: int = 0) -> torch.Tensor:
+    """jax.random.normal in float32 (offset: as random_bits)."""
+    return _normal_of_bits(random_bits(key, shape, device, offset))
 
 
 _I32_MIN, _I32_MAX = -2**31, 2**31 - 1

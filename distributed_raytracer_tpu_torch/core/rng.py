@@ -3,7 +3,9 @@ distributed_raytracer_tpu/core/rng.py.
 
 Each sampler draws from core/prng.py's keys with JAX's shapes, so every
 draw is JAX's draw (bit for bit for the uniforms, within a few ulp where a
-normal or a cos/sin enters).  `device` says where the draws are made.
+normal or a cos/sin enters).  `device` says where the draws are made;
+`row0` draws rows row0.. of a batch that starts at row 0 (a shard's part
+of the whole batch's draws, as JAX's sharded draws give each device).
 """
 
 from __future__ import annotations
@@ -22,9 +24,16 @@ def _shape(batch_shape: Shape) -> Tuple[int, ...]:
     return (batch_shape,) if isinstance(batch_shape, int) else tuple(batch_shape)
 
 
-def uniform(key: torch.Tensor, batch_shape: Shape = (), device="cpu") -> torch.Tensor:
+def _offset(shape: Tuple[int, ...], row0: int) -> int:
+    """The flat index of row row0 of shape's leading axis."""
+    return row0 * math.prod(shape[1:]) if shape else 0
+
+
+def uniform(key: torch.Tensor, batch_shape: Shape = (), device="cpu", row0: int = 0
+            ) -> torch.Tensor:
     """U[0, 1) draws in float32."""
-    return prng.uniform(key, _shape(batch_shape), device=device)
+    shp = _shape(batch_shape)
+    return prng.uniform(key, shp, device=device, offset=_offset(shp, row0))
 
 
 def uniform_range(key: torch.Tensor, lo: float, hi: float, batch_shape: Shape = (),
@@ -38,10 +47,12 @@ def _normalized(g: torch.Tensor) -> torch.Tensor:
     return g * torch.rsqrt(torch.clamp_min(norm2, 1e-20))
 
 
-def unit_vector(key: torch.Tensor, batch_shape: Shape = (), device="cpu") -> torch.Tensor:
+def unit_vector(key: torch.Tensor, batch_shape: Shape = (), device="cpu", row0: int = 0
+                ) -> torch.Tensor:
     """Uniform direction on the unit sphere, [*batch, 3]: a normalized
     [*batch, 3] gaussian draw."""
-    return _normalized(prng.normal(key, _shape(batch_shape) + (3,), device=device))
+    shp = _shape(batch_shape) + (3,)
+    return _normalized(prng.normal(key, shp, device=device, offset=_offset(shp, row0)))
 
 
 def unit_vector_keys(keys: torch.Tensor) -> torch.Tensor:
@@ -49,19 +60,23 @@ def unit_vector_keys(keys: torch.Tensor) -> torch.Tensor:
     return _normalized(prng.normal_keys(keys, (3,)))
 
 
-def in_unit_disk(key: torch.Tensor, batch_shape: Shape = (), device="cpu") -> torch.Tensor:
+def in_unit_disk(key: torch.Tensor, batch_shape: Shape = (), device="cpu", row0: int = 0
+                 ) -> torch.Tensor:
     """Uniform point in the unit disk (z = 0), [*batch, 3], by the
     sqrt-polar map: r = sqrt(u1), theta = 2 pi u2."""
     ku, kv = prng.split(key)
     shp = _shape(batch_shape)
-    r = torch.sqrt(prng.uniform(ku, shp, device=device))
-    theta = prng.uniform(kv, shp, 0.0, 2.0 * math.pi, device=device)
+    off = _offset(shp, row0)
+    r = torch.sqrt(prng.uniform(ku, shp, device=device, offset=off))
+    theta = prng.uniform(kv, shp, 0.0, 2.0 * math.pi, device=device, offset=off)
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta),
                         torch.zeros(shp, dtype=torch.float32, device=device)], dim=-1)
 
 
-def square_jitter(key: torch.Tensor, batch_shape: Shape = (), device="cpu") -> torch.Tensor:
+def square_jitter(key: torch.Tensor, batch_shape: Shape = (), device="cpu", row0: int = 0
+                  ) -> torch.Tensor:
     """Random offset in [-0.5, 0.5)^2 (z = 0), [*batch, 3]."""
     shp = _shape(batch_shape)
-    xy = prng.uniform(key, shp + (2,), -0.5, 0.5, device=device)
+    xy = prng.uniform(key, shp + (2,), -0.5, 0.5, device=device,
+                      offset=_offset(shp + (2,), row0))
     return torch.cat([xy, torch.zeros(shp + (1,), dtype=torch.float32, device=device)], dim=-1)

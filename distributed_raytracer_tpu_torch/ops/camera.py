@@ -185,21 +185,22 @@ def rays_from_offsets(cam_row: torch.Tensor, pixel_i: torch.Tensor, pixel_j: tor
 
 
 def generate_rays(camera: Camera, pixel_i: torch.Tensor, pixel_j: torch.Tensor,
-                  draws=None, *, key: Optional[torch.Tensor] = None
+                  draws=None, *, key: Optional[torch.Tensor] = None, row0: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched Camera::get_ray; pixel_i is the column, pixel_j the row.
     Returns (origins [R, 3], directions [R, 3]).  The draws are the given
     uniforms (jx, jy, u1, u2), each [R], or else JAX's threefry draws
     from key: split(key) gives (k_jitter, k_disk), square_jitter(k_jitter,
-    R) the pixel offsets and in_unit_disk(k_disk, R) the disk point."""
+    R) the pixel offsets and in_unit_disk(k_disk, R) the disk point; with
+    row0 the rays are rows row0.. of a larger batch and take its draws."""
     cam_row = camera_scalar_row(camera)
     if draws is not None:
         ox, oy, oz, dx, dy, dz = rays_from_row(cam_row, pixel_i, pixel_j, draws)
     else:
         r = pixel_i.shape[0]
         k_jitter, k_disk = prng.split(key)
-        offset = drng.square_jitter(k_jitter, r, device=pixel_i.device)
-        p = drng.in_unit_disk(k_disk, r, device=pixel_i.device)
+        offset = drng.square_jitter(k_jitter, r, device=pixel_i.device, row0=row0)
+        p = drng.in_unit_disk(k_disk, r, device=pixel_i.device, row0=row0)
         ox, oy, oz, dx, dy, dz = rays_from_offsets(cam_row, pixel_i, pixel_j, offset[:, 0],
                                                    offset[:, 1], p[:, 0], p[:, 1])
     return torch.stack([ox, oy, oz], -1), torch.stack([dx, dy, dz], -1)

@@ -54,17 +54,20 @@ def gather_hit_params(scene: Scene, sphere_idx: torch.Tensor) -> dict:
 
 
 def scatter(key: Optional[torch.Tensor], ray_o, ray_d, t, sphere_idx, scene: Scene,
-            draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> ScatterResult:
+            draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            row0: int = 0) -> ScatterResult:
     """One scatter event for rays that hit sphere_idx at t."""
     return scatter_gathered(key, ray_o, ray_d, t, gather_hit_params(scene, sphere_idx),
-                            draws=draws)
+                            draws=draws, row0=row0)
 
 
 def scatter_gathered(key: Optional[torch.Tensor], ray_o, ray_d, t, params: dict,
-                     draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                     ) -> ScatterResult:
+                     draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     row0: int = 0) -> ScatterResult:
     """scatter() with the winning spheres' attributes already gathered.
-    draws: (unit vectors [R, 3], uniforms [R]) instead of the key's."""
+    draws: (unit vectors [R, 3], uniforms [R]) instead of the key's.
+    row0: the rays are rows row0.. of a larger wavefront and take its
+    draws (core/rng.py)."""
     r = ray_o.shape[0]
     centers, radii, albedo = params["centers"], params["radii"], params["albedo"]
     mat, fuzz, ior = params["mat"], params["fuzz"], params["ior"]
@@ -73,8 +76,8 @@ def scatter_gathered(key: Optional[torch.Tensor], ray_o, ray_d, t, params: dict,
 
     if draws is None:
         k_unit, k_choice = prng.split(key)
-        ruv = drng.unit_vector(k_unit, r, device=ray_o.device)
-        u_choice = drng.uniform(k_choice, r, device=ray_o.device)
+        ruv = drng.unit_vector(k_unit, r, device=ray_o.device, row0=row0)
+        u_choice = drng.uniform(k_choice, r, device=ray_o.device, row0=row0)
     else:
         ruv, u_choice = draws
 

@@ -60,13 +60,15 @@ def init_state(ray_o: torch.Tensor, ray_d: torch.Tensor) -> RayState:
 
 
 def bounce_step(state: RayState, key: torch.Tensor, scene: Scene,
-                intersect_fn=closest_hit) -> RayState:
-    """One masked bounce of the whole wavefront."""
+                intersect_fn=closest_hit, row0: int = 0) -> RayState:
+    """One masked bounce of the whole wavefront (rows row0.. of a larger
+    one when row0 is given: the draws are that wavefront's)."""
     hit_res = intersect_fn(state.origin, state.direction, scene)
     # a miss carries t = BIG, which would overflow the scatter's hit point
     # (and its NaNs would leak into gradients): give misses a safe t
     t_safe = torch.where(hit_res.hit, hit_res.t, 1.0)
-    sc = materials.scatter(key, state.origin, state.direction, t_safe, hit_res.idx, scene)
+    sc = materials.scatter(key, state.origin, state.direction, t_safe, hit_res.idx, scene,
+                           row0=row0)
 
     finish_miss = state.active & ~hit_res.hit
     keep_going = state.active & hit_res.hit & sc.scattered
@@ -85,22 +87,23 @@ def bounce_step(state: RayState, key: torch.Tensor, scene: Scene,
 
 
 def trace_rays(scene: Scene, ray_o: torch.Tensor, ray_d: torch.Tensor, key: torch.Tensor,
-               max_depth: int, intersect_fn=closest_hit, early_skip: bool = True
-               ) -> torch.Tensor:
-    """Differentiable fixed-depth trace; returns colors [R, 3]."""
+               max_depth: int, intersect_fn=closest_hit, early_skip: bool = True,
+               row0: int = 0) -> torch.Tensor:
+    """Differentiable fixed-depth trace; returns colors [R, 3].  row0: the
+    rays are rows row0.. of a larger batch and draw as its rows do."""
     state = init_state(ray_o, ray_d)
     keys = prng.split(key, max_depth)
     for i in range(max_depth):
         if early_skip and not bool(state.active.any()):
             break
-        state = bounce_step(state, keys[i], scene, intersect_fn)
+        state = bounce_step(state, keys[i], scene, intersect_fn, row0)
     return state.color
 
 
 def trace_rays_fast(scene: Scene, ray_o: torch.Tensor, ray_d: torch.Tensor,
-                    key: torch.Tensor, max_depth: int, intersect_fn=closest_hit
-                    ) -> torch.Tensor:
+                    key: torch.Tensor, max_depth: int, intersect_fn=closest_hit,
+                    row0: int = 0) -> torch.Tensor:
     """Forward-only trace that stops once every ray has finished: trace_rays
     without autograd (the same draws and colors)."""
     with torch.no_grad():
-        return trace_rays(scene, ray_o, ray_d, key, max_depth, intersect_fn)
+        return trace_rays(scene, ray_o, ray_d, key, max_depth, intersect_fn, row0=row0)

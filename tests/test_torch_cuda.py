@@ -911,3 +911,113 @@ def test_mega_tracer_plain_backward_on_card(card):
                                        device=card), scene, o, d) for mb in (False, True)]
     assert torch.equal(runs[0][0], runs[1][0])
     _fields_close(runs[0][1], runs[1][1], 1e-4)
+
+
+# ---- the distributed layer's kernels at shard offsets (parallel/) ----
+
+DP_RANKS = 3
+
+
+def _dp_mesh():
+    from distributed_raytracer_tpu_torch.parallel import Mesh
+
+    return Mesh(n_rays=DP_RANKS)
+
+
+def test_mega_dp_render_shards_on_card(card):
+    """K5 over 3 ranks of a 50x28 image (1,400 pixels: shards of 467, the
+    last 466, so its n_valid < n_cap at a nonzero pix0): the shards
+    concatenate to the whole image's sum bit for bit, one launch a sample
+    a rank."""
+    from distributed_raytracer_tpu_torch.parallel import make_mega_dp_render
+
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = presets.final_scene_camera(50).replace(max_depth=8)
+    whole = mrk.render_wavefront_sum_mega(scene, camera, 2, 5, 6, device=card)
+    dp = make_mega_dp_render(_dp_mesh(), camera, device=card)
+    before = mrk.mega_render_cuda.launches
+    got = torch.cat([dp.local(scene, 5, 6, [0, 1], r) for r in range(DP_RANKS)])
+    torch.cuda.synchronize()
+    assert mrk.mega_render_cuda.launches == before + 2 * DP_RANKS
+    assert torch.equal(got[:camera.num_pixels], whole) and not got[camera.num_pixels:].any()
+
+
+def test_mega_walk_dp_render_shards_on_card(card):
+    """K9 over 3 ranks past 512 spheres: the shards equal the whole."""
+    from distributed_raytracer_tpu_torch.parallel import make_mega_walk_dp_render
+
+    scene = presets.random_sphere_field(600, seed=5, extent=30.0)
+    camera = _walk_camera(50)
+    pack = mwk.walk_pack_for(scene, camera, chunk=256)
+    whole = mwk.render_wavefront_sum_mega_walk(pack, camera, 2, 5, 6, device=card)
+    dp = make_mega_walk_dp_render(_dp_mesh(), pack, camera, device=card)
+    before = mwk.mega_walk_sample_cuda.launches
+    got = torch.cat([dp.local(5, 6, [0, 1], r) for r in range(DP_RANKS)])
+    torch.cuda.synchronize()
+    assert mwk.mega_walk_sample_cuda.launches == before + 2 * DP_RANKS
+    assert torch.equal(got[:camera.num_pixels], whole)
+
+
+def test_camera_dp_tracer_shards_on_card(card):
+    """K6 and K8 over 3 ranks of the 50x28 image: colors bit for bit with
+    the single-device tracer, the summed gradients within 1e-4 of each
+    field's max (the same sums, atomics in another order)."""
+    from distributed_raytracer_tpu_torch.parallel import make_tape_camera_dp_tracer
+
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = presets.final_scene_camera(50).replace(max_depth=8)
+    n = camera.num_pixels
+
+    def leaves():
+        return {k: v.to(card).clone().requires_grad_() for k, v in scene.diff_params().items()}
+
+    p = leaves()
+    want = make_tape_camera_tracer(camera, 7, 8, iota_pix=True, device=card)(
+        scene.with_diff_params(p), torch.arange(n))
+    (want ** 2).sum().backward()
+    dp = make_tape_camera_dp_tracer(_dp_mesh(), camera, 7, 8, device=card)
+    q = leaves()
+    before = (mk.mega_forward_camera_cuda.launches, wbk.mega_walk_backward_cuda.launches)
+    parts = [dp.local(scene.with_diff_params(q), r) for r in range(DP_RANKS)]
+    sum((x ** 2).sum() for x in parts).backward()
+    torch.cuda.synchronize()
+    assert (mk.mega_forward_camera_cuda.launches, wbk.mega_walk_backward_cuda.launches) == (
+        before[0] + DP_RANKS, before[1] + DP_RANKS)
+    assert torch.equal(torch.cat(parts)[:n].detach(), want.detach())
+    _fields_close({k: v.grad for k, v in q.items()}, {k: v.grad for k, v in p.items()}, 1e-4)
+
+
+def test_scene_sharded_closest_hit_on_card(card, tmp_path):
+    """K11 over 2 scene shards, as a 2-process gloo job on the card
+    (tests/_torch_multihost_worker.py): the least hit over the shards
+    equals the dense K11 hit on the padded unsplit scene, t and idx bit for
+    bit."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from distributed_raytracer_tpu_torch.parallel import shard_scene
+
+    worker = Path(__file__).resolve().parent / "_torch_multihost_worker.py"
+    procs = [subprocess.Popen([sys.executable, str(worker), "k11_scene_shards", str(r), "2",
+                               str(tmp_path / "init"), str(tmp_path), "cuda"],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    sys.path.insert(0, str(worker.parent))
+    import _torch_multihost_worker as w
+
+    o, d = w.k11_rays(card)
+    padded = shard_scene(presets.rtiow_final_scene(pad_to=512).to(card), 2)
+    dense = ik.closest_hit_pallas(o, d, padded)
+    for r in range(2):
+        got = np.load(tmp_path / f"k11_scene_shards_{r}.npz")
+        assert np.array_equal(got["t"].view(np.int32), dense.t.cpu().numpy().view(np.int32))
+        assert np.array_equal(got["idx"], dense.idx.cpu().numpy())

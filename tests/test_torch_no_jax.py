@@ -41,7 +41,10 @@ def test_port_imports_no_jax():
               "ops.kernels.culled_bounce_kernel", "render.order", "render.wavefront",
               "core.prng", "core.rng", "core.interval", "core.ray", "ops.intersect",
               "ops.materials", "ops.trace", "ops.kernels.intersect_kernel",
-              "render.renderer", "grad.pathgrad", "render.progressive"):
+              "render.renderer", "grad.pathgrad", "render.progressive", "utils.config",
+              "models.scene_io", "models.aabb", "parallel", "parallel.mesh",
+              "parallel.multihost", "parallel.sharded", "parallel.scene_sharded",
+              "parallel.spatial"):
         assert f"distributed_raytracer_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
