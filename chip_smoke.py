@@ -39,8 +39,17 @@ paths run every rank's shard in turn in one process (K5 at worlds 4 and 7,
 the camera and walk training steps, the fused engine), render-dist runs
 at world size 1 on NCCL, and the scene-sharded render runs as four gloo
 processes on the card (this script with --scene-shard-worker); and a
-scene file exported by the CLI renders the preset's image.  Any failed
-phase raises, so the exit code is nonzero and no result line is printed.
+scene file exported by the CLI renders the preset's image.  Last, the
+modules that complete the port (phases 40-44): render_progressive's
+shuffled fill on the mega engine at 1200x675 (50 chunks through K10 at a
+pool of 2,048, three held against the plain bounce, the samples after it
+against K5), the checkpoint cadence with a crash resumed bit for bit, the
+JAX package's committed mega checkpoint resumed from 500 to 504 spp, the
+CLI with --job, --fill shuffled and --snapshot-every on the auto engine,
+the live display fetched over loopback, --sanitize, supervise restarting
+a crashed and a hung render, and timed_best beside CUDA events.  Any
+failed phase raises, so the exit code is nonzero and no result line is
+printed.
 Without a CUDA card it exits with code 2.
 
     python3 chip_smoke.py --record out/chip_smoke.json
@@ -51,10 +60,12 @@ also writes the run's numbers to that file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -167,6 +178,9 @@ LANE_BYTES = 102
 # clock cycles a second that kernel_ms's sleep counts at least (the H100
 # SXM's SM clock is at most 1,980 MHz, so the sleep lasts no less than asked)
 SLEEP_CYCLES_PER_S = 2.0e9
+# launches replayed behind one sleep when a run's launches are replayed in
+# groups (the shuffled fill's thousands of K10 launches)
+FILL_REPLAY_GROUP = 256
 
 
 class SmokeFailure(RuntimeError):
@@ -2523,6 +2537,352 @@ def check_distributed_path(dev, presets, final, cam_main, k5_ms: float,
     return dict(dp_launches=out, record=record)
 
 
+class RecordFill:
+    """Wraps native.accumulate inside render/progressive.py for one run:
+    keeps each fill chunk's pixel ids and colors, in order."""
+
+    def __init__(self):
+        from distributed_raytracer_tpu_torch.render import progressive
+
+        self.native, self.chunks = progressive.native, []
+
+    def __enter__(self):
+        self.real = self.native.accumulate
+        self.native.accumulate = self
+        return self
+
+    def __exit__(self, *exc):
+        self.native.accumulate = self.real
+
+    def __call__(self, raw, count, colors, ids):
+        self.chunks.append((np.array(ids), np.array(colors)))
+        self.real(raw, count, colors, ids)
+
+
+def cli_run(args, timeout=600):
+    """The port's CLI in a child process; returns the finished process."""
+    return subprocess.run([sys.executable, "-m", "distributed_raytracer_tpu_torch.cli", *args],
+                          cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+
+
+def last_json(text: str) -> dict:
+    """The last line of text that is a JSON object."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    require(lines, f"no JSON line in: {text[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def check_fill_cli_path(dev, presets, final, cam_main) -> dict:
+    """Phases 40-44: the last modules of the port on the card, at the main
+    path (the final scene padded to 512, 1200x675 depth 50).  (40)
+    render_progressive(fill="shuffled") on the mega engine: 50 fill chunks
+    through K10 at a pool of 2,048, each pixel filled once, monotone
+    snapshots, three chunks held against the plain bounce bit for bit,
+    samples 1-3 equal K5's sum at batch_seeds(0, 1).  (41) checkpoint_every,
+    the final save, a crash after a save resumed bit for bit, and the JAX
+    package's committed mega checkpoint resumed from 500 to 504 spp.  (42)
+    the CLI: --fill shuffled --snapshot-every 1 --job with auto engine (the
+    job record, the metrics line, the PPM equal to (40)'s image), --display
+    over loopback, --sanitize.  (43) supervise: --chaos crash:2, and hang:2
+    with a stall timeout, each equal to a straight run.  (44) timed_best
+    beside cuda_ms on K5's 4-spp render."""
+    import shutil
+    import signal
+    import urllib.request
+
+    from distributed_raytracer_tpu_torch import native
+    from distributed_raytracer_tpu_torch.core import prng
+    from distributed_raytracer_tpu_torch.ops.kernels import bounce_kernel as bk
+    from distributed_raytracer_tpu_torch.ops.kernels import mega_render_kernel as mrk
+    from distributed_raytracer_tpu_torch.render import progressive, wavefront
+    from distributed_raytracer_tpu_torch.render.display import _bmp_from_argb
+    from distributed_raytracer_tpu_torch.render.image import read_ppm, to_bytes, write_ppm
+    from distributed_raytracer_tpu_torch.render.progressive import AccumState, render_progressive
+    from distributed_raytracer_tpu_torch.utils.config import RenderJobConfig
+    from distributed_raytracer_tpu_torch.utils.metrics import timed_best
+    from distributed_raytracer_tpu_torch.utils.sanitize import FloatSanitizerError, checked
+
+    record, launches = {}, {}
+    n = cam_main.num_pixels
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+
+    # --- phase 40: the shuffled fill on the mega engine ---
+    snaps, done_at = [], {}
+
+    def fill_cb(img):  # the pixels filled so far
+        snaps.append(int((img.reshape(-1, 3).sum(-1) != 0).sum()))
+
+    def progress(state):
+        done_at[state.samples_done] = time.time()
+
+    bk.fused_bounce_cuda.launches = 0
+    mrk.mega_render_cuda.launches = 0
+    with EngineBounces("fused_bounce", dev) as rec, RecordFill() as fill:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state = render_progressive(final, cam_main, seed=0, spp=4, batch=3, fill="shuffled",
+                                   fill_chunk=16384, engine="mega", fill_cb=fill_cb,
+                                   progress_cb=progress)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    k10_fill, k5_after = bk.fused_bounce_cuda.launches, mrk.mega_render_cuda.launches
+    fill_wall = done_at[1] - t0
+    arrays = bk.fused_scene_arrays(final.to(dev))
+    k10 = lambda *a: bk.fused_bounce_cuda(*a[:4], arrays, *a[4:])  # noqa: E731
+    # the fill's launches replayed in groups of FILL_REPLAY_GROUP, each
+    # group behind its own sleep: thousands of launches in one group
+    # fill the launch queue, and the host's enqueue then counts
+    k10_ms = sum(kernel_ms(lambda g=rec.inputs[i:i + FILL_REPLAY_GROUP]: [k10(*a) for a in g],
+                           1) for i in range(0, len(rec.inputs), FILL_REPLAY_GROUP))
+    k10_one_group = rec.replay_ms(k10)
+    n_chunks = -(-n // 16384)
+    require(len(fill.chunks) == n_chunks == len(snaps), f"{len(fill.chunks)} fill chunks, "
+            f"{len(snaps)} snapshots, want {n_chunks}")
+    count = np.bincount(np.concatenate([ids for ids, _ in fill.chunks]), minlength=n)
+    require(count.shape == (n,) and (count == 1).all(), "the fill did not fill each pixel once")
+    require(snaps == sorted(snaps) and snaps[0] < snaps[-1],
+            "the fill's snapshots do not fill in monotonically")
+    require(k10_fill == len(rec.inputs) and k10_fill >= n_chunks,
+            f"the fill launched K10 {k10_fill} times ({len(rec.inputs)} bounces)")
+    require(k5_after == 3, f"samples 1-3 launched K5 {k5_after} times, not 3")
+    log(f"[fill] render_progressive(fill=shuffled, engine=mega) final 1200x675 depth 50, spp 4 "
+        f"batch 3: {n_chunks} chunks of 16,384 through K10 (pool 2,048), {k10_fill} K10 "
+        f"launches, fill {fill_wall * 1e3:.1f} ms of wall, K10 {k10_ms:.1f} ms of card time "
+        f"(replayed in groups of {FILL_REPLAY_GROUP}; {k10_ms / (fill_wall * 1e3):.2%} of the "
+        f"fill, {k10_ms / k10_fill:.4f} ms a launch; {k10_one_group:.1f} ms replayed as one "
+        f"group), then {k5_after} K5 "
+        f"launches; whole run {wall * 1e3:.1f} ms; snapshots filled {snaps[0]:,} .. "
+        f"{snaps[-1]:,} pixels")
+    del rec
+    # three chunks against the plain bounce, at the same ids and seeds
+    key = prng.fold_in(prng.PRNGKey(0), progressive.FILL_FOLD)
+    perm = native.shuffled_indices(n, int(prng.randint(key, (), 0, prng.SEED_MAX)))
+    real = wavefront.fused_bounce
+    wavefront.fused_bounce = bk.fused_bounce_plain
+    try:
+        for c in range(3):
+            ids, got = fill.chunks[c]
+            require(np.array_equal(ids, perm[c * 16384:(c + 1) * 16384]),
+                    f"fill chunk {c} is not the permutation's")
+            t1 = time.time()
+            want = wavefront.render_wavefront_sum_fused(
+                final, cam_main, 1, *prng.seed_pair(prng.fold_in(key, c * 16384)),
+                pool_size=2048, pixel_ids=torch.as_tensor(ids), device=dev).cpu().numpy()
+            log(f"[fill] chunk {c}: K10 == plain bounce bit for bit "
+                f"{np.array_equal(got, want)} (max abs err {float(np.abs(got - want).max()):.3e}"
+                f"; plain {time.time() - t1:.1f} s)")
+            require(np.array_equal(got, want), f"fill chunk {c}: K10 differs from plain")
+    finally:
+        wavefront.fused_bounce = real
+    raw = np.zeros((n, 3), np.float32)
+    cnt = np.zeros(n, np.int32)
+    for ids, colors in fill.chunks:
+        native.accumulate(raw, cnt, colors, ids)
+    tail = mrk.render_wavefront_sum_mega(final, cam_main, 3, *progressive.batch_seeds(0, 1))
+    require(np.array_equal(state.raw_sum, raw + tail.cpu().numpy()),
+            "samples 1-3 after the fill differ from K5 at batch_seeds(0, 1)")
+    img = state.mean_image()
+    require(np.isfinite(img).all() and img[0, 600, 2] > img[0, 600, 0],
+            "the filled image is not finite with a bluish sky")
+    log("[fill] samples 1-3 == render_wavefront_sum_mega at batch_seeds(0, 1) bit for bit")
+    launches["fill"] = dict(fused_bounce=k10_fill, mega_render=k5_after)
+    record["fill"] = dict(chunks=n_chunks, k10_launches=k10_fill, fill_ms=fill_wall * 1e3,
+                          k10_ms=k10_ms, k10_one_group_ms=k10_one_group,
+                          k10_share=k10_ms / (fill_wall * 1e3),
+                          k5_launches=k5_after, wall_ms=wall * 1e3)
+    del fill
+
+    # --- phase 41: checkpoint cadence, a crash after a save, the JAX mega checkpoint ---
+    ckpt = build / "smoke_cadence.ckpt"
+    ckpt.unlink(missing_ok=True)
+    saves = []
+    real_save = AccumState.save
+
+    def save(self, path):
+        saves.append(self.samples_done)
+        real_save(self, path)
+
+    class Crash(Exception):
+        pass
+
+    def crash_at_3(st):
+        if st.samples_done == 3:
+            raise Crash()
+
+    AccumState.save = save
+    try:
+        kw = dict(seed=7, spp=5, batch=1, engine="mega")
+        whole = render_progressive(final, cam_main, **kw)
+        try:
+            render_progressive(final, cam_main, checkpoint_path=str(ckpt), checkpoint_every=2,
+                               progress_cb=crash_at_3, **kw)
+            require(False, "the crash was not raised")
+        except Crash:
+            pass
+        require(saves == [2], f"saves before the crash at sample 3: {saves}")
+        resumed = render_progressive(final, cam_main, checkpoint_path=str(ckpt),
+                                     checkpoint_every=2, **kw)
+    finally:
+        AccumState.save = real_save
+    require(saves == [2, 4, 5], f"saves {saves}, want [2, 4, 5]: every second batch, then "
+            f"the final save")
+    require(np.array_equal(resumed.raw_sum, whole.raw_sum),
+            "the resume after a crash is not bit-identical")
+    log(f"[ckpt] checkpoint_every=2 saves at {saves} (the last the final save); crashed after "
+        "sample 3, resumed from 2 to 5: equal to the uninterrupted render bit for bit")
+    jax_ckpt = build / "smoke_config4_500spp_mega.ckpt"
+    shutil.copyfile(ROOT / "artifacts" / "config4_500spp_mega.ckpt", jax_ckpt)
+    old = AccumState.load(str(jax_ckpt))
+    s4, c4 = presets.config4()
+    mrk.mega_render_cuda.launches = 0
+    t1 = time.time()
+    st = render_progressive(s4, c4, seed=0, spp=504, batch=50, engine="mega",
+                            checkpoint_path=str(jax_ckpt))
+    resume_ms = (time.time() - t1) * 1e3
+    k5_resume = mrk.mega_render_cuda.launches
+    delta = mrk.render_wavefront_sum_mega(s4, c4, 4, *progressive.batch_seeds(0, 500))
+    require(st.samples_done == 504 and k5_resume == 4,
+            f"resume reached {st.samples_done} spp with {k5_resume} K5 launches")
+    require(np.array_equal(st.raw_sum, old.raw_sum + delta.cpu().numpy()),
+            "the resumed JAX checkpoint is not its sum plus K5's 4 spp at batch_seeds(0, 500)")
+    log(f"[ckpt] artifacts/config4_500spp_mega.ckpt ({old.engine}, batch {old.batch}, "
+        f"{old.samples_done} spp) resumed to 504 spp in {resume_ms:.1f} ms with {k5_resume} K5 "
+        f"launches: old sum + K5 at batch_seeds(0, 500) bit for bit")
+    launches["resume_504"] = dict(mega_render=k5_resume)
+    record["resume_ms"] = resume_ms
+
+    # --- phase 42: the CLI (--job, --fill, --snapshot-every, auto engine; display; sanitize) ---
+    job_file, out_ppm, cli_ckpt = (build / "smoke_job.json", build / "smoke_fill.ppm",
+                                   build / "smoke_fill.ckpt")
+    for f in (out_ppm, cli_ckpt):
+        f.unlink(missing_ok=True)
+    job_file.write_text(RenderJobConfig(preset="config5", seed=0, spp=4, batch=3,
+                                        output=str(out_ppm), fill="shuffled").to_json())
+    t1 = time.time()
+    r = cli_run(["render", "--job", str(job_file), "--snapshot-every", "1", "--checkpoint",
+                 str(cli_ckpt)])
+    cli_s = time.time() - t1
+    require(r.returncode == 0, r.stderr[-4000:])
+    job = RenderJobConfig.from_json(Path(str(cli_ckpt) + ".json").read_text())
+    require((job.preset, job.engine, job.fill, job.spp, job.batch, job.seed) ==
+            ("config5", "mega", "shuffled", 4, 3, 0), f"job record {job}")
+    metrics = last_json(r.stderr)
+    require(metrics["samples_done"] == 4 and metrics["rays_traced"] == 4 * n
+            and set(metrics) == {"rays_traced", "samples_done", "rays_per_sec", "phases"},
+            f"metrics line {metrics}")
+    want_bytes = to_bytes(img)
+    require(np.array_equal(read_ppm(str(out_ppm)), want_bytes),
+            "the CLI's PPM differs from render_progressive's mean image")
+    log(f"[cli] render --job (config5, spp 4, batch 3, fill shuffled) --snapshot-every 1 with "
+        f"the auto engine: exit 0 in {cli_s:.1f} s, job record {job.engine}/{job.fill}, "
+        f"metrics {json.dumps(metrics)}; the PPM equals phase 40's image byte for byte")
+    record["cli_fill_s"] = cli_s
+
+    disp_ppm = build / "smoke_display.ppm"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_raytracer_tpu_torch.cli", "render", "--config",
+         "config5", "--spp", "2", "--display", "--display-port", "0", "--display-linger",
+         "--out", str(disp_ppm)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    timer = threading.Timer(300, proc.kill)
+    timer.start()
+    try:
+        url, lines = None, []
+        for line in proc.stderr:
+            lines.append(line)
+            m = re.search(r"final frame at (http://\S+/)", line)
+            if m:
+                url = m.group(1)
+                break
+        require(url is not None, "".join(lines)[-3000:])
+        with urllib.request.urlopen(url + "stats.json", timeout=30) as resp:
+            stats = json.loads(resp.read())
+        with urllib.request.urlopen(url + "frame.bmp", timeout=30) as resp:
+            bmp = resp.read()
+        proc.send_signal(signal.SIGINT)
+        rest = proc.communicate(timeout=60)[1]
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    require(proc.returncode == 0, "".join(lines)[-2000:] + rest[-2000:])
+    two = render_progressive(final, cam_main, seed=0, spp=2, batch=16, engine="mega")
+    want_bmp = _bmp_from_argb(native.tonemap_pack(two.mean_image()), 1200, 675)
+    require(stats["spp_done"] == 2 and stats["width"] == 1200 and stats["frames"] >= 2,
+            f"/stats.json {stats}")
+    require(bmp == want_bmp, "/frame.bmp differs from the tonemapped 2-spp image")
+    log(f"[cli] render --display --display-port 0 --display-linger: {url} served /stats.json "
+        f"{stats} and /frame.bmp ({len(bmp):,} bytes) equal to the 2-spp image's BMP; "
+        f"SIGINT ended it with exit 0")
+
+    with checked_raises(FloatSanitizerError):
+        x = torch.zeros(4, 3, device=dev, requires_grad=True)
+        checked(lambda v: torch.autograd.grad(
+            torch.where(torch.sqrt((v * v).sum(-1)) > 0, torch.sqrt((v * v).sum(-1)),
+                        0.0).sum(), v))(x)
+    san_ppm = build / "smoke_sanitize.ppm"
+    t1 = time.time()
+    r = cli_run(["render", "--config", "config5", "--spp", "2", "--sanitize", "--out",
+                 str(san_ppm)])
+    require(r.returncode == 0 and "[sanitize] clean" in r.stderr, r.stderr[-4000:])
+    require(san_ppm.read_bytes() == disp_ppm.read_bytes(),
+            "the sanitized render differs from the plain 2-spp render")
+    log(f"[cli] the sanitizer flags the single-where gradient on the card (its backward ops "
+        f"checked); render --sanitize: pre-flight clean on the card, the 2-spp render under "
+        f"nan_debug equals the render without it byte for byte ({time.time() - t1:.1f} s)")
+
+    # --- phase 43: supervise (crash, then hang with a stall timeout) ---
+    write_ppm(str(build / "smoke_straight.ppm"),
+              render_progressive(final, cam_main, seed=0, spp=4, batch=1,
+                                 engine="mega").mean_image())
+    straight = (build / "smoke_straight.ppm").read_bytes()
+    for mode, extra in (("crash", []), ("hang", ["--stall-timeout", "20"])):
+        ck, beat, out = (build / f"smoke_sup_{mode}.ckpt", build / f"smoke_sup_{mode}.beat",
+                         build / f"smoke_sup_{mode}.ppm")
+        for f in (ck, Path(str(ck) + ".chaos"), beat, out):
+            f.unlink(missing_ok=True)
+        t1 = time.time()
+        r = cli_run(["supervise", "--max-restarts", "2", *extra, "--", "render", "--config",
+                     "config5", "--spp", "4", "--batch", "1", "--checkpoint", str(ck),
+                     "--heartbeat", str(beat), "--chaos", f"{mode}:2", "--out", str(out)])
+        took = time.time() - t1
+        event = "exit:13" if mode == "crash" else "stall"
+        require(r.returncode == 0 and "after 1 restart" in r.stderr and event in r.stderr,
+                r.stderr[-4000:])
+        require(out.read_bytes() == straight,
+                f"the supervised {mode} render differs from the straight run")
+        killed = re.findall(r"killing pid \d+", r.stderr)
+        log(f"[supervise] --chaos {mode}:2: restarted once ({event}"
+            f"{', ' + killed[0] if killed else ''}), the PPM equals the straight run byte for "
+            f"byte; {took:.1f} s")
+        record[f"supervise_{mode}_s"] = took
+
+    # --- phase 44: timed_best beside cuda_ms on K5's 4-spp render ---
+    seeds = progressive.batch_seeds(0, 0)
+
+    def k5_4spp():
+        return mrk.render_wavefront_sum_mega(final, cam_main, 4, *seeds, device=dev)
+
+    best_s = timed_best(k5_4spp, iters=3, reps=3)
+    ev_ms = cuda_ms(k5_4spp, 5)
+    log(f"[time] K5 4 spp through render_wavefront_sum_mega: timed_best {best_s * 1e3:.3f} ms "
+        f"(host clock, the card waited for), cuda_ms {ev_ms:.3f} ms (CUDA events)")
+    record["timed_best_ms"], record["cuda_ms"] = best_s * 1e3, ev_ms
+    return dict(launches=launches, record=record)
+
+
+@contextlib.contextmanager
+def checked_raises(exc):
+    """The block must raise exc."""
+    try:
+        yield
+    except exc:
+        return
+    raise SmokeFailure(f"{exc.__name__} was not raised")
+
+
 def scene_shard_worker(rank: int, init: str, outdir: str) -> int:
     """One rank of phase 38: a 2 x 2 (rays x scene) mesh on gloo over this
     card.  Probes which gloo collectives take CUDA tensors, then holds
@@ -2824,6 +3184,9 @@ def main() -> int:
     # --- phases 35-39: the distributed layer (K5, K6, K8, K9, K10, K14, K11 on shards)
     # and scene files ---
     dist = check_distributed_path(dev, presets, final, cam_main, ms, wall * 1e3 / 4)
+    # --- phases 40-44: the shuffled fill (K10), checkpoint cadence and the JAX
+    # checkpoint's resume (K5), the CLI, display, sanitizer and supervisor ---
+    fill = check_fill_cli_path(dev, presets, final, cam_main)
 
     # --- phase 9: the kernel line, then the device line last ---
     # K5 at the main-path shape traced the rays K6 recorded (sample 0, the
@@ -2838,6 +3201,10 @@ def main() -> int:
         bound_by="operations" if ops_s >= bytes_s else "bytes", library_ms=None,
         library_note=NO_LIBRARY["mega_render"], lane_use=k5_lane,
         dp_launches=dist["dp_launches"]["mega_render"],
+        # samples 1-3 after the shuffled fill (phase 40), the JAX checkpoint's
+        # resume from 500 to 504 spp (phase 41)
+        fill_launches=dict(after_fill=fill["launches"]["fill"]["mega_render"],
+                           resume_504=fill["launches"]["resume_504"]["mega_render"]),
         # the same rays as K6's at the main path (sample 0), so the same lengths
         lane_use_static=grad["mega_forward"]["lane_use_static"],
     )]
@@ -2864,6 +3231,9 @@ def main() -> int:
         if name in dist["dp_launches"]:
             # its launches on the distributed paths (phases 35-38)
             kernels[-1]["dp_launches"] = dist["dp_launches"][name]
+        if name in fill["launches"]["fill"]:
+            # its launches in the shuffled fill of 50 chunks (phase 40)
+            kernels[-1]["fill_launches"] = fill["launches"]["fill"][name]
         for key in ("max_norm_err",  # g_pm's columns span orders of magnitude
                     # the persistent kernels (K5-K9): lane use, the walk's sweep lane use,
                     # one thread per ray in static warps of 32
@@ -2885,6 +3255,7 @@ def main() -> int:
                       walk_path=walk["record"], ray_pose_path=rays["record"],
                       fused_path=fused["record"], reference_path=ref["record"],
                       training_paths=train["record"], distributed_paths=dist["record"],
+                      fill_cli_paths=fill["record"],
                       seconds=time.time() - t_start)
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

@@ -3,7 +3,8 @@
     python -m distributed_raytracer_tpu_torch.cli render --config config5 --spp 4 --out out.ppm
 
 `render` is the progressive renderer, with checkpoint/resume, on the mega
-engine (the default), the fused wavefront engine (--engine fused), the
+engine (--engine auto, the default, picks it on the card and the scan
+engine with --cpu), the fused wavefront engine (--engine fused), the
 reference wavefront engine (--engine wavefront; --pallas intersects with
 the K11 kernel) or the scan engine (--engine scan); --accel culled
 renders over the Morton-chunked CulledScene (chunks of 256 on the mega
@@ -14,6 +15,19 @@ intersects it with the block-culled K12).  It runs on the CUDA card;
 
     python -m distributed_raytracer_tpu_torch.cli render --engine fused --accel culled --cpu
     python -m distributed_raytracer_tpu_torch.cli render --engine wavefront --pallas --cpu
+
+--fill shuffled renders sample 0 in shuffled chunks of --fill-chunk
+pixels first; --snapshot-every N writes the PPM every N samples (and after
+each fill chunk); --display serves the image over HTTP while it renders;
+--sanitize runs utils/sanitize.py's pre-flight, then renders under
+nan_debug; --job FILE takes defaults from a RenderJobConfig file, and
+--checkpoint PATH also writes the job's record to PATH.json.  `supervise`
+restarts a render that dies or, with --heartbeat and --stall-timeout,
+stalls; the restart resumes from the checkpoint (--chaos crash:N|hang:N
+injects one fault):
+
+    python -m distributed_raytracer_tpu_torch.cli supervise --stall-timeout 30 -- \
+        render --config config4 --checkpoint c.ckpt --heartbeat c.beat
 
 `grad-check` prints the loss and dL/dscene of a 4-sample render against
 the render of another key; `invert` recovers a perturbed albedo by Adam
@@ -75,13 +89,62 @@ def _load(args):
     return scene, cam
 
 
+def _resolve_engine(args) -> str:
+    """The engine of `render` (JAX's cli.py:80-109): auto is mega on the
+    card and scan with --cpu (wavefront with --cpu and --accel culled), or
+    wavefront with --wavefront; --accel culled turns the scan engine into
+    the wavefront engine."""
+    engine = args.engine
+    if engine == "auto":
+        if args.wavefront:
+            return "wavefront"
+        if args.cpu:
+            return "wavefront" if args.accel == "culled" else "scan"
+        return "mega"
+    if args.accel == "culled" and engine not in ("wavefront", "fused", "mega"):
+        print(f"[cli] --accel culled requires a wavefront engine; overriding --engine {engine}",
+              file=sys.stderr)
+        return "wavefront"
+    return engine
+
+
+def _job_config(args, engine):
+    """The effective RenderJobConfig of this invocation, written beside the
+    checkpoint as <checkpoint>.json (JAX's cli.py:112-127)."""
+    from distributed_raytracer_tpu_torch.utils.config import RenderJobConfig
+
+    return RenderJobConfig(
+        preset=args.config,
+        scene_path=getattr(args, "scene", None),
+        seed=args.seed,
+        spp=args.spp,
+        batch=args.batch,
+        checkpoint_path=args.checkpoint,
+        output=args.out,
+        engine=engine,
+        fill=args.fill,
+    )
+
+
 def cmd_render(args):
+    import contextlib
+    import os
+
     from distributed_raytracer_tpu_torch.render.image import write_ppm
     from distributed_raytracer_tpu_torch.render.progressive import render_progressive
+    from distributed_raytracer_tpu_torch.utils.metrics import RenderMetrics
 
     scene, cam = _load(args)
-    out = args.out or f"{args.config}.ppm"
+    engine = _resolve_engine(args)
     device = "cpu" if args.cpu else None
+    guard = contextlib.nullcontext()
+    if args.sanitize:
+        from distributed_raytracer_tpu_torch.utils.sanitize import nan_debug, preflight
+
+        print("[sanitize] checked fwd+grad pre-flight...", file=sys.stderr)
+        preflight(scene, cam, seed=args.seed, device=device)
+        print("[sanitize] clean; rendering under nan_debug", file=sys.stderr)
+        guard = nan_debug()
     culled = intersect_fn = None
     if args.accel == "culled":
         from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import (
@@ -89,33 +152,123 @@ def cmd_render(args):
             make_culled_intersect,
         )
 
-        culled = build_culled_scene(scene, chunk=256 if args.engine == "mega" else 128)
+        culled = build_culled_scene(scene, chunk=256 if engine == "mega" else 128)
         scene = culled.scene  # the reordered scene the culled engines trace
-        if args.engine in ("scan", "wavefront"):
+        if engine == "wavefront":
             # the reference engine intersects the culled scene through K12;
             # the mega and fused engines walk the CulledScene themselves
             intersect_fn, culled = make_culled_intersect(culled), None
-            args.engine = "wavefront"
+    out = args.out or f"{args.config}.ppm"
+    if args.checkpoint:
+        with open(args.checkpoint + ".json", "w") as f:
+            f.write(_job_config(args, engine).to_json())
+
+    metrics = RenderMetrics()
+    display = None
+    if args.display:
+        from distributed_raytracer_tpu_torch.render.display import LiveDisplay
+
+        display = LiveDisplay(cam.image_width, cam.image_height, port=args.display_port,
+                              spp_total=cam.samples_per_pixel).start()
+        print(f"live view: {display.url}", file=sys.stderr)
+
+    # fault injection between sample batches, once per job: a marker file
+    # beside the checkpoint (or the output) lets a supervised restart run on
+    chaos_mode, chaos_at = None, 0
+    if args.chaos:
+        chaos_mode, at = args.chaos.split(":")
+        if chaos_mode not in ("crash", "hang"):
+            raise SystemExit(f"--chaos {args.chaos}: the mode is crash or hang")
+        chaos_at = int(at)
+    chaos_marker = (args.checkpoint or out) + ".chaos"
+    # a resumed render counts only the samples it traces
+    last = [0]
+    if args.checkpoint and not args.no_resume and os.path.exists(args.checkpoint):
+        from distributed_raytracer_tpu_torch.render.progressive import AccumState
+
+        last[0] = AccumState.load(args.checkpoint).samples_done
     t0 = time.time()
 
     def progress(state):
+        metrics.add_rays(cam.num_pixels * max(0, state.samples_done - last[0]))
+        last[0] = state.samples_done
+        metrics.samples_done = state.samples_done
         el = time.time() - t0
         print(
             f"sample {state.samples_done}/{cam.samples_per_pixel} "
-            f"({cam.num_pixels * state.samples_done / el:,.0f} rays/s) [{args.engine}]",
+            f"({cam.num_pixels * state.samples_done / el:,.0f} rays/s) [{engine}]",
             file=sys.stderr,
         )
+        if args.heartbeat:
+            with open(args.heartbeat, "w") as f:
+                f.write(str(state.samples_done))
+        if args.snapshot_every and state.samples_done % args.snapshot_every == 0:
+            write_ppm(out, state.mean_image())
+        if display is not None:
+            display.progress_cb()(state)
+        if chaos_mode and state.samples_done >= chaos_at and not os.path.exists(chaos_marker):
+            with open(chaos_marker, "w") as f:
+                f.write(chaos_mode)
+            if chaos_mode == "crash":
+                print("chaos: crashing", file=sys.stderr, flush=True)
+                os._exit(13)
+            print("chaos: hanging", file=sys.stderr, flush=True)
+            time.sleep(3600)
 
-    state = render_progressive(
-        scene, cam, seed=args.seed, spp=cam.samples_per_pixel, batch=args.batch,
-        checkpoint_path=args.checkpoint, resume=not args.no_resume,
-        progress_cb=progress, engine=args.engine, device=device, culled=culled,
-        ray_order="tiled" if args.accel == "culled" else "row", resort_every=args.resort,
-        use_pallas=args.pallas, intersect_fn=intersect_fn,
-    )
-    write_ppm(out, state.mean_image())
-    print(f"wrote {out} [engine={state.engine}, device={'cpu' if args.cpu else 'cuda'}]",
-          file=sys.stderr)
+    fill_cb = None
+    if args.fill == "shuffled" and (args.snapshot_every or display is not None):
+        def fill_cb(img):
+            # repaint while the shuffled fill streams in, chunk by chunk
+            if args.snapshot_every:
+                write_ppm(out, img)
+            if display is not None:
+                display.update(img, spp_done=0)
+
+    try:
+        with metrics.phase("render"), guard:
+            state = render_progressive(
+                scene, cam, seed=args.seed, spp=cam.samples_per_pixel, batch=args.batch,
+                checkpoint_path=args.checkpoint, resume=not args.no_resume,
+                progress_cb=progress, engine=engine, device=device, culled=culled,
+                ray_order="tiled" if args.accel == "culled" else "row",
+                resort_every=args.resort, use_pallas=args.pallas, intersect_fn=intersect_fn,
+                fill=args.fill, fill_chunk=args.fill_chunk, fill_cb=fill_cb,
+            )
+        write_ppm(out, state.mean_image())
+        metrics.report()
+        print(f"wrote {out} [engine={state.engine}, device={'cpu' if args.cpu else 'cuda'}]",
+              file=sys.stderr)
+        if display is not None:
+            display.update(state.mean_image(), spp_done=state.samples_done)
+            if args.display_linger:
+                print(f"final frame at {display.url}; ctrl-c to exit", file=sys.stderr)
+                try:
+                    while True:
+                        time.sleep(1)
+                except KeyboardInterrupt:
+                    pass
+    finally:
+        if display is not None:
+            display.close()
+
+
+def cmd_supervise(args):
+    from distributed_raytracer_tpu_torch.utils.supervise import Supervisor
+
+    child = args.child
+    if child and child[0] == "--":
+        child = child[1:]
+    hb = None
+    for i, a in enumerate(child):
+        if a == "--heartbeat" and i + 1 < len(child):
+            hb = child[i + 1]
+        elif a.startswith("--heartbeat="):
+            hb = a.split("=", 1)[1]
+    res = Supervisor(child, heartbeat=hb, stall_timeout=args.stall_timeout,
+                     max_restarts=args.max_restarts, startup_grace=args.startup_grace).run()
+    print(f"supervise: exit {res.exit_code} after {res.restarts} restart(s) "
+          f"({','.join(res.events)})", file=sys.stderr)
+    sys.exit(res.exit_code)
 
 
 def cmd_grad_check(args):
@@ -299,18 +452,35 @@ def _add_common(p):
                    help="run the plain PyTorch version on the CPU")
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    # no prefix abbreviations: --job's precedence finds the flags that were
+    # typed by their exact tokens, which an abbreviation would slip past
     ap = argparse.ArgumentParser(prog="distributed_raytracer_tpu_torch", allow_abbrev=False)
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("render", help="single-device progressive render", allow_abbrev=False)
     _add_common(p)
-    p.add_argument("--checkpoint", default=None, help="checkpoint path for resume")
+    p.add_argument("--job", default=None, metavar="FILE",
+                   help="RenderJobConfig JSON file (utils/config.py) supplying defaults; "
+                        "flags typed on the command line win")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint path for resume (the job record goes to PATH.json)")
     p.add_argument("--no-resume", action="store_true")
-    p.add_argument("--engine", choices=["mega", "fused", "scan", "wavefront"], default="mega",
+    p.add_argument("--snapshot-every", type=int, default=0, metavar="N",
+                   help="write the progressive PPM every N samples (and after each chunk of "
+                        "a shuffled fill)")
+    p.add_argument("--engine", choices=["auto", "mega", "fused", "scan", "wavefront"],
+                   default="auto",
                    help="mega = one kernel launch per image sample; fused = the wavefront "
                         "engine, one fused bounce launch per bounce of a ray pool; scan = "
                         "the reference bounce over ray tiles; wavefront = the reference "
-                        "bounce over a ray pool (JAX's threefry noise)")
+                        "bounce over a ray pool (JAX's threefry noise).  auto = mega on the "
+                        "card, scan with --cpu (wavefront with --accel culled)")
+    p.add_argument("--wavefront", action="store_true",
+                   help="--engine auto picks the wavefront engine")
+    p.add_argument("--fill", choices=["row", "shuffled"], default="row",
+                   help="shuffled = render sample 0 in shuffled pixel chunks first")
+    p.add_argument("--fill-chunk", type=int, default=16384,
+                   help="pixels per chunk of the shuffled fill (the repaint granularity)")
     p.add_argument("--pallas", action="store_true",
                    help="the wavefront engine intersects with the closest-hit kernel (K11)")
     p.add_argument("--accel", choices=["none", "culled"], default="none",
@@ -319,7 +489,37 @@ def main(argv=None):
     p.add_argument("--resort", type=int, default=0, metavar="K",
                    help="re-sort the wavefront engines' lanes every K bounces (--accel "
                         "culled; 0 = off)")
+    p.add_argument("--display", action="store_true",
+                   help="serve the progressive image over HTTP (render/display.py)")
+    p.add_argument("--display-port", type=int, default=8642,
+                   help="port for --display (0 = a free port)")
+    p.add_argument("--display-linger", action="store_true",
+                   help="keep serving the final frame after the render ends")
+    p.add_argument("--sanitize", action="store_true",
+                   help="the checked forward+gradient pre-flight on a small ray batch "
+                        "(utils/sanitize.py), then the render under nan_debug")
+    p.add_argument("--heartbeat", default=None, metavar="PATH",
+                   help="write the sample count to PATH every progress step (stall "
+                        "detection for `supervise`)")
+    p.add_argument("--chaos", default=None, metavar="MODE:N",
+                   help="fault injection: crash:N exits with code 13, hang:N sleeps, once "
+                        "N samples are done (one-shot through a .chaos marker file)")
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser(
+        "supervise", allow_abbrev=False,
+        help="run a render under failure detection: restart on death, kill by pid and "
+             "restart on a heartbeat stall")
+    p.add_argument("--max-restarts", type=int, default=5)
+    p.add_argument("--stall-timeout", type=float, default=None,
+                   help="seconds of heartbeat silence before kill and restart (needs "
+                        "--heartbeat in the child's arguments)")
+    p.add_argument("--startup-grace", type=float, default=None,
+                   help="the stall window before an attempt's first beat (default 4x "
+                        "--stall-timeout)")
+    p.add_argument("child", nargs=argparse.REMAINDER,
+                   help="-- render <flags...> (include --checkpoint)")
+    p.set_defaults(fn=cmd_supervise)
 
     p = sub.add_parser(
         "render-dist", allow_abbrev=False,
@@ -359,7 +559,39 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=100)
     p.set_defaults(fn=cmd_invert)
 
-    args = ap.parse_args(argv)
+    return ap
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The parsed command line; `render --job FILE` fills every flag that
+    was not typed from the job file (JAX's cli.py:728-751)."""
+    args = build_parser().parse_args(argv)
+    if getattr(args, "job", None):
+        from distributed_raytracer_tpu_torch.utils.config import RenderJobConfig
+
+        tokens = list(argv) if argv is not None else sys.argv[1:]
+
+        def typed(flag):
+            return any(a == flag or a.startswith(flag + "=") for a in tokens)
+
+        with open(args.job) as f:
+            job = RenderJobConfig.from_json(f.read())
+        if not typed("--config") and job.preset:
+            args.config = job.preset
+        for attr, flag, value in (
+            ("scene", "--scene", job.scene_path), ("seed", "--seed", job.seed),
+            ("spp", "--spp", job.spp), ("batch", "--batch", job.batch),
+            ("checkpoint", "--checkpoint", job.checkpoint_path),
+            ("out", "--out", job.output), ("engine", "--engine", job.engine),
+            ("fill", "--fill", job.fill),
+        ):
+            if not typed(flag) and value is not None:
+                setattr(args, attr, value)
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     args.fn(args)
 
 

@@ -1,6 +1,7 @@
 """Image post-processing and output in numpy: gamma-2, clamp and byte
-quantization, and a binary PPM writer and reader (the port's own copy of
-distributed_raytracer_tpu/render/image.py)."""
+quantization, packing into 0xFFRRGGBB display words, and a binary PPM
+writer and reader (the port's own copy of distributed_raytracer_tpu/
+render/image.py)."""
 
 from __future__ import annotations
 
@@ -20,6 +21,13 @@ def to_bytes(linear_rgb: np.ndarray) -> np.ndarray:
     g = linear_to_gamma(np.asarray(linear_rgb))
     q = 255.999 * np.clip(g, INTENSITY_MIN, INTENSITY_MAX)
     return q.astype(np.uint8)
+
+
+def pack_argb(linear_rgb: np.ndarray) -> np.ndarray:
+    """Linear [..., 3] float -> uint32 [...] 0xFFRRGGBB, the display
+    buffer's word (render/display.py)."""
+    b = to_bytes(linear_rgb).astype(np.uint32)
+    return (np.uint32(255) << 24) | (b[..., 0] << 16) | (b[..., 1] << 8) | b[..., 2]
 
 
 def write_ppm(path: str, linear_rgb: np.ndarray) -> None:

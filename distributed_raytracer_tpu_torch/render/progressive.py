@@ -29,6 +29,13 @@ where the TPU kernel draws on the core (ops/kernels/bounce_kernel.py), so
 it gives the same estimator with other noise.  Within the port, resume is
 bit-identical when the batch size matches the checkpoint's (any batch
 size on the scan engine).
+
+fill="shuffled" renders sample 0 in shuffled pixel chunks before the
+batches, with JAX's keys, permutation (native.shuffled_indices of a
+threefry randint) and padding, so the scan engine's fill is JAX's pixel
+for pixel to float32 rounding; the mega and fused engines fill through
+the dense fused engine (K10), whose draws are keyed by ray id where the
+TPU kernel draws on the core, as above.
 """
 
 from __future__ import annotations
@@ -40,11 +47,13 @@ import tempfile
 from typing import Callable, Optional, Tuple
 
 import numpy as np
+import torch
 
+from distributed_raytracer_tpu_torch import native
 from distributed_raytracer_tpu_torch.core import prng
 from distributed_raytracer_tpu_torch.core.device import resolve_device
 from distributed_raytracer_tpu_torch.models.scene import Scene
-from distributed_raytracer_tpu_torch.ops.camera import Camera
+from distributed_raytracer_tpu_torch.ops.camera import Camera, generate_rays
 from distributed_raytracer_tpu_torch.ops.kernels.culled_kernel import CulledScene
 from distributed_raytracer_tpu_torch.ops.kernels.mega_render_kernel import (
     mega_render_supported,
@@ -57,6 +66,7 @@ from distributed_raytracer_tpu_torch.ops.kernels.mega_walk_kernel import (
 )
 from distributed_raytracer_tpu_torch.ops.intersect import closest_hit
 from distributed_raytracer_tpu_torch.ops.kernels.intersect_kernel import closest_hit_pallas
+from distributed_raytracer_tpu_torch.ops.trace import trace_rays_fast
 from distributed_raytracer_tpu_torch.render.order import tile_permutation
 from distributed_raytracer_tpu_torch.render.renderer import DEFAULT_TILE, render_sample_batch
 from distributed_raytracer_tpu_torch.render.wavefront import (
@@ -118,8 +128,10 @@ class AccumState:
                 seed=int(z["seed"]),
                 image_width=int(z["image_width"]),
                 image_height=int(z["image_height"]),
-                engine=str(z["engine"]),
-                batch=int(z["batch"]),
+                # a file written before these fields existed is the scan
+                # engine's, whose resume takes any batch
+                engine=str(z["engine"]) if "engine" in z.files else "scan",
+                batch=int(z["batch"]) if "batch" in z.files else 0,
             )
 
     @classmethod
@@ -142,6 +154,50 @@ def batch_seeds(seed: int, samples_done: int) -> Tuple[int, int]:
     return prng.seed_pair(prng.fold_in(prng.PRNGKey(seed), samples_done))
 
 
+FILL_FOLD = 0x5F111  # the fill's key, apart from every sample's (progressive.py:439)
+
+
+def _shuffled_fill_sample(scene_dev: Scene, camera_dev: Camera, key: torch.Tensor,
+                          fill_chunk: int, fill_cb, fused: bool, pool_size: int,
+                          dev) -> np.ndarray:
+    """Sample 0 rendered in chunks of fill_chunk pixels in a shuffled
+    order; returns its color sum [H*W, 3].  fill_cb, if given, gets the
+    mean image [H, W, 3] of the pixels filled so far after each chunk
+    (the others black).  The order is shuffled_indices(n_pix,
+    randint(key)); chunk c0 renders from fold_in(key, c0), a short last
+    chunk padded with pixel 0 (its colors dropped; the scan engine's
+    threefry draws depend on the batch shape).  With fused, a chunk is the
+    dense fused engine (K10) at seed_pair(chunk key) and a pool of
+    min(pool_size, chunk); else split(chunk key) gives the camera key and
+    the trace key of the reference bounce (JAX's progressive.py:279-337)."""
+    n_pix = camera_dev.num_pixels
+    w = camera_dev.image_width
+    perm = native.shuffled_indices(n_pix, seed=int(prng.randint(key, (), 0, prng.SEED_MAX)))
+    chunk = min(fill_chunk, n_pix)
+    raw = np.zeros((n_pix, 3), np.float32)
+    count = np.zeros(n_pix, np.int32)
+    for c0 in range(0, n_pix, chunk):
+        ids = perm[c0:c0 + chunk]
+        padded = torch.as_tensor(np.pad(ids, (0, chunk - len(ids))), device=dev,
+                                 dtype=torch.int64)
+        k = prng.fold_in(key, c0)
+        if fused:
+            colors = render_wavefront_sum_fused(scene_dev, camera_dev, 1, *prng.seed_pair(k),
+                                                pool_size=min(pool_size, chunk),
+                                                pixel_ids=padded, device=dev)
+        else:
+            k_cam, k_trace = prng.split(k)
+            o, d = generate_rays(camera_dev, padded % w, padded // w, key=k_cam)
+            dt = scene_dev.centers.dtype
+            colors = trace_rays_fast(scene_dev, o.to(dt), d.to(dt), k_trace,
+                                     camera_dev.max_depth)
+        native.accumulate(raw, count, colors[:len(ids)].cpu().numpy(), ids)
+        if fill_cb is not None:
+            denom = np.maximum(count, 1).astype(np.float32)[:, None]
+            fill_cb((raw / denom).reshape(camera_dev.image_height, w, 3))
+    return raw
+
+
 def render_progressive(
     scene: Scene,
     camera: Camera,
@@ -149,6 +205,7 @@ def render_progressive(
     spp: Optional[int] = None,
     batch: int = 16,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 1,
     resume: bool = True,
     progress_cb: Optional[Callable[[AccumState], None]] = None,
     engine: str = "mega",
@@ -160,9 +217,12 @@ def render_progressive(
     use_pallas: bool = False,
     intersect_fn=None,
     tile_size: int = DEFAULT_TILE,
+    fill: str = "row",
+    fill_chunk: int = 16384,
+    fill_cb: Optional[Callable[[np.ndarray], None]] = None,
 ) -> AccumState:
     """Render spp samples per pixel in batches, checkpointing after every
-    batch.  A compatible checkpoint (same seed, image size, engine tag and
+    checkpoint_every batches and once at the end.  A compatible checkpoint (same seed, image size, engine tag and
     batch; any batch on the scan engine) is resumed; any other is started
     over.
 
@@ -182,11 +242,21 @@ def render_progressive(
     culled, ray_order="tiled" streams the pixels in 32x16 tiles and
     resort_every re-sorts the lanes (the dense engine ignores both, as the
     JAX engine does).  The engine tag of the state is the engine, with
-    "+culled" when culled is given."""
+    "+culled" when culled is given.
+
+    fill="shuffled" renders sample 0 of a fresh render in shuffled chunks
+    of fill_chunk pixels (_shuffled_fill_sample; fill_cb gets the partial
+    image after each chunk): on the mega and fused engines through the
+    dense fused engine (K10) with a pool of pool_size (default 2048 on the
+    mega engine, 16384 on the fused one; a CulledScene is not used), on the
+    others through the reference bounce, as JAX's scan fill; the batches
+    then start at sample 1."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if ray_order not in ("row", "tiled"):
         raise ValueError(f"unknown ray_order {ray_order!r}")
+    if fill not in ("row", "shuffled"):
+        raise ValueError(f"unknown fill {fill!r}")
     spp = spp if spp is not None else camera.samples_per_pixel
     dev = resolve_device(device)
     camera_dev = camera.to(dev)
@@ -251,13 +321,30 @@ def render_progressive(
     if state is None:
         state = AccumState.fresh(camera, seed, engine=tag, batch=batch)
 
+    if fill == "shuffled" and state.samples_done == 0:
+        fused = engine in ("fused", "mega")
+        fill_pool = pool_size or (2048 if engine == "mega" else DEFAULT_POOL)
+        state.raw_sum = state.raw_sum + _shuffled_fill_sample(
+            scene.to(dev), camera_dev, prng.fold_in(key, FILL_FOLD), fill_chunk, fill_cb,
+            fused, fill_pool, dev)
+        state.samples_done = 1
+        if checkpoint_path:
+            state.save(checkpoint_path)
+        if progress_cb is not None:
+            progress_cb(state)
+
+    since_save = 0
     while state.samples_done < spp:
         n = min(batch, spp - state.samples_done)
         delta = render(n, state.samples_done)
         state.raw_sum = state.raw_sum + delta.cpu().numpy()
         state.samples_done += n
-        if checkpoint_path:
+        since_save += 1
+        if checkpoint_path and since_save >= checkpoint_every:
             state.save(checkpoint_path)
+            since_save = 0
         if progress_cb is not None:
             progress_cb(state)
+    if checkpoint_path:
+        state.save(checkpoint_path)
     return state

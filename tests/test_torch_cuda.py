@@ -1021,3 +1021,59 @@ def test_scene_sharded_closest_hit_on_card(card, tmp_path):
         got = np.load(tmp_path / f"k11_scene_shards_{r}.npz")
         assert np.array_equal(got["t"].view(np.int32), dense.t.cpu().numpy().view(np.int32))
         assert np.array_equal(got["idx"], dense.idx.cpu().numpy())
+
+
+def test_shuffled_fill_k10_chunks_on_card(card, monkeypatch):
+    """The mega engine's shuffled fill on the final scene at 160x90 depth
+    50: every fill chunk runs K10 (pool 2048), and the fill equals the same
+    fill with the plain bounce swapped in, bit for bit; samples 1-2 equal
+    K5 at batch_seeds(seed, 1)."""
+    from distributed_raytracer_tpu_torch.render import progressive
+
+    scene = presets.rtiow_final_scene(pad_to=512)
+    camera = presets.final_scene_camera(160)
+    kw = dict(seed=5, spp=3, batch=2, fill="shuffled", fill_chunk=4000, engine="mega")
+    snaps = []
+    before = bk.fused_bounce_cuda.launches
+    got = progressive.render_progressive(scene, camera, fill_cb=lambda im: snaps.append(im),
+                                         **kw)
+    assert bk.fused_bounce_cuda.launches > before
+    assert len(snaps) == -(-camera.num_pixels // 4000)
+    filled = [int((s.reshape(-1, 3).sum(-1) != 0).sum()) for s in snaps]
+    assert filled == sorted(filled)
+
+    def plain(o, d, live, lane_ray, arrays, seed, **k):
+        return bk.fused_bounce_plain(o, d, live, lane_ray, arrays, seed, **k)
+
+    monkeypatch.setattr(wavefront, "fused_bounce", plain)
+    plain_snaps = []
+    want = progressive.render_progressive(scene, camera,
+                                          fill_cb=lambda im: plain_snaps.append(im), **kw)
+    np.testing.assert_array_equal(snaps[-1], plain_snaps[-1])
+    tail = mrk.render_wavefront_sum_mega(scene, camera, 2, *progressive.batch_seeds(5, 1))
+    fill = snaps[-1].reshape(-1, 3)
+    np.testing.assert_array_equal(got.raw_sum, fill + tail.cpu().numpy())
+    np.testing.assert_array_equal(got.raw_sum, want.raw_sum)
+
+
+def test_resume_jax_mega_checkpoint_on_card(card, tmp_path):
+    """The JAX package's committed mega checkpoint (config4, 1200x675, 500
+    spp in batches of 50) resumes on the card to 504 spp: the new sum is
+    the old sum plus K5's 4-spp sum at batch_seeds(0, 500), bit for bit."""
+    import shutil
+    from pathlib import Path
+
+    from distributed_raytracer_tpu_torch.render import progressive
+
+    src = Path(__file__).resolve().parents[1] / "artifacts" / "config4_500spp_mega.ckpt"
+    ckpt = tmp_path / "resume.ckpt"
+    shutil.copyfile(src, ckpt)  # the resume rewrites its checkpoint
+    old = progressive.AccumState.load(str(ckpt))
+    scene, camera = presets.config4()
+    before = mrk.mega_render_cuda.launches
+    st = progressive.render_progressive(scene, camera, seed=0, spp=504, batch=50,
+                                        engine="mega", checkpoint_path=str(ckpt))
+    assert mrk.mega_render_cuda.launches == before + 4
+    assert st.samples_done == 504
+    delta = mrk.render_wavefront_sum_mega(scene, camera, 4, *progressive.batch_seeds(0, 500))
+    np.testing.assert_array_equal(st.raw_sum, old.raw_sum + delta.cpu().numpy())

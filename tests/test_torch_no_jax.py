@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
               "render.renderer", "grad.pathgrad", "render.progressive", "utils.config",
               "models.scene_io", "models.aabb", "parallel", "parallel.mesh",
               "parallel.multihost", "parallel.sharded", "parallel.scene_sharded",
-              "parallel.spatial"):
+              "parallel.spatial", "utils.metrics", "utils.sanitize", "utils.supervise",
+              "render.display", "render.image"):
         assert f"distributed_raytracer_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
