@@ -250,7 +250,14 @@ def render_progressive(
     dense fused engine (K10) with a pool of pool_size (default 2048 on the
     mega engine, 16384 on the fused one; a CulledScene is not used), on the
     others through the reference bounce, as JAX's scan fill; the batches
-    then start at sample 1."""
+    then start at sample 1.
+
+    progress_cb gets the state after each batch, once that batch's sum is
+    in host memory; the raw_sum it sees is never written afterwards.  On
+    the card the mega engine has the next batch queued by then
+    (render_progressive.overlapped counts such batches); if that launch
+    raises, the batch before it is still taken into the state and saved
+    per checkpoint_every, though not called back."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if ray_order not in ("row", "tiled"):
@@ -333,18 +340,65 @@ def render_progressive(
         if progress_cb is not None:
             progress_cb(state)
 
+    # The running sum stays on the device, each batch's sum added in place:
+    # the adds numpy's raw_sum + delta did, in the same order and dtype.
+    # On the card each new sum is copied into one of two pinned buffers
+    # without blocking.  The mega engine's render() only queues launches,
+    # so batch k+1 is queued before the host hands out batch k (saves,
+    # calls back) and the card renders meanwhile; batch k+2's copy into
+    # batch k's buffer is queued only after that.  The other engines read
+    # back inside render() (scan waits for its last ray, fused and wavefront
+    # count live lanes), so a lookahead would only hand each batch out one
+    # batch later: they, and the CPU, hand out each batch once it is summed.
+    on_card = dev.type == "cuda"
+    lookahead = 1 if on_card and engine == "mega" else 0
+    sum_dev = torch.tensor(state.raw_sum, device=dev)  # a copy: no array handed out is written
+    pinned = []
+    queued = []  # per batch: (samples done after it, its sum in host memory, the copy's event)
     since_save = 0
-    while state.samples_done < spp:
-        n = min(batch, spp - state.samples_done)
-        delta = render(n, state.samples_done)
-        state.raw_sum = state.raw_sum + delta.cpu().numpy()
-        state.samples_done += n
+
+    def hand_out(cb):
+        nonlocal since_save
+        done, host, copied = queued.pop(0)
+        if copied is not None:
+            copied.synchronize()
+        render_progressive.overlapped += len(queued)
+        state.raw_sum = host.numpy().copy()
+        state.samples_done = done
         since_save += 1
         if checkpoint_path and since_save >= checkpoint_every:
             state.save(checkpoint_path)
             since_save = 0
-        if progress_cb is not None:
-            progress_cb(state)
+        if cb is not None:
+            cb(state)
+
+    for k, start in enumerate(range(state.samples_done, spp, batch)):
+        try:
+            delta = render(min(batch, spp - start), start)
+        except BaseException:
+            while queued:  # as without the lookahead: the batch before is in the state and saved
+                hand_out(None)
+            raise
+        sum_dev = sum_dev.to(torch.promote_types(sum_dev.dtype, delta.dtype))
+        sum_dev.add_(delta)
+        done = min(start + batch, spp)
+        if on_card:
+            if len(pinned) < 2:
+                pinned.append(torch.empty(sum_dev.shape, dtype=sum_dev.dtype, pin_memory=True))
+            host = pinned[k % 2]
+            host.copy_(sum_dev, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(dev))
+            queued.append((done, host, copied))
+        else:
+            queued.append((done, sum_dev, None))
+        while len(queued) > lookahead:
+            hand_out(progress_cb)
+    while queued:
+        hand_out(progress_cb)
     if checkpoint_path:
         state.save(checkpoint_path)
     return state
+
+
+render_progressive.overlapped = 0  # batches handed out while the next was already queued

@@ -1077,3 +1077,97 @@ def test_resume_jax_mega_checkpoint_on_card(card, tmp_path):
     assert st.samples_done == 504
     delta = mrk.render_wavefront_sum_mega(scene, camera, 4, *progressive.batch_seeds(0, 500))
     np.testing.assert_array_equal(st.raw_sum, old.raw_sum + delta.cpu().numpy())
+
+
+@pytest.mark.parametrize("engine", ["mega", "walk", "fused"])
+def test_progressive_lookahead_on_card(card, tmp_path, monkeypatch, engine):
+    """render_progressive on the card: the mega engine (mega: K5 on the
+    final scene; walk: K9 on 600 spheres) queues batch k+1 before it hands
+    out batch k; the fused engine (K10 on the final scene), which reads
+    back inside each batch, hands out batch k first.  On each the image and
+    every snapshot equal the float32 prefix sums, added on the host, of the
+    engine's own batch sums; each snapshot is its own array, unchanged
+    after later batches; the checkpoint after every batch loads to the
+    snapshot, one from the middle resumes to the same image bit for bit,
+    and a launch that raises leaves the batch before it saved."""
+    from distributed_raytracer_tpu_torch.render import progressive
+
+    if engine == "walk":
+        scene, camera = presets.random_sphere_field(600, seed=5, extent=30.0), _walk_camera(96)
+        pack = mwk.walk_pack_for(scene, camera, chunk=256).to(card)
+
+        def batch_sum(n, seeds):
+            return mwk.render_wavefront_sum_mega_walk(pack, camera, n, *seeds, device=card)
+    else:
+        scene = presets.rtiow_final_scene(pad_to=512)
+        camera = presets.final_scene_camera(96).replace(max_depth=50)
+        if engine == "mega":
+            def batch_sum(n, seeds):
+                return mrk.render_wavefront_sum_mega(scene, camera, n, *seeds, device=card)
+        else:
+            def batch_sum(n, seeds):
+                return wavefront.render_wavefront_sum_fused(scene, camera, n, *seeds,
+                                                            pool_size=wavefront.DEFAULT_POOL,
+                                                            device=card)
+    seed, spp, batch = 9, 7, 2
+    starts = list(range(0, spp, batch))
+    want, acc = [], np.zeros((camera.num_pixels, 3), np.float32)
+    for done in starts:  # the expression the loop had: raw_sum + delta on the host
+        acc = acc + batch_sum(min(batch, spp - done), progressive.batch_seeds(seed, done)
+                              ).cpu().numpy()
+        want.append(acc)
+    kw = dict(seed=seed, spp=spp, batch=batch, engine="fused" if engine == "fused" else "mega")
+    ckpt, middle = tmp_path / "ck.npz", tmp_path / "middle.npz"
+    snaps, events = [], []
+    name = {"mega": "render_wavefront_sum_mega", "walk": "render_wavefront_sum_mega_walk",
+            "fused": "render_wavefront_sum_fused"}[engine]
+    engine_sum = getattr(progressive, name)
+
+    def logged(*args, **kwargs):
+        events.append("render")
+        return engine_sum(*args, **kwargs)
+
+    def keep(state):
+        events.append("cb")
+        snaps.append(state.raw_sum)
+        back = progressive.AccumState.load(str(ckpt))
+        assert back.samples_done == state.samples_done
+        np.testing.assert_array_equal(back.raw_sum, state.raw_sum)
+        if len(snaps) == 2:
+            middle.write_bytes(ckpt.read_bytes())
+
+    monkeypatch.setattr(progressive, name, logged)
+    before = progressive.render_progressive.overlapped
+    got = progressive.render_progressive(scene, camera, checkpoint_path=str(ckpt),
+                                         progress_cb=keep, **kw)
+    if engine == "fused":
+        assert progressive.render_progressive.overlapped == before
+        assert events == ["render", "cb"] * len(starts)
+    else:
+        assert progressive.render_progressive.overlapped == before + len(starts) - 1
+        assert events == ["render"] + ["render", "cb"] * (len(starts) - 1) + ["cb"]
+    assert len(snaps) == len(starts)
+    assert len({id(s) for s in snaps}) == len(snaps)
+    for s, w in zip(snaps, want):
+        np.testing.assert_array_equal(s, w)
+    np.testing.assert_array_equal(got.raw_sum, want[-1])
+    assert got.samples_done == spp
+    resumed = progressive.render_progressive(scene, camera, checkpoint_path=str(middle), **kw)
+    assert resumed.samples_done == spp
+    np.testing.assert_array_equal(resumed.raw_sum, want[-1])
+
+    calls = []
+
+    def failing(*args, **kwargs):
+        calls.append(args)
+        if len(calls) == 3:
+            raise RuntimeError("launch failed")
+        return engine_sum(*args, **kwargs)
+
+    monkeypatch.setattr(progressive, name, failing)
+    lost = tmp_path / "lost.npz"
+    with pytest.raises(RuntimeError, match="launch failed"):
+        progressive.render_progressive(scene, camera, checkpoint_path=str(lost), **kw)
+    back = progressive.AccumState.load(str(lost))
+    assert back.samples_done == starts[2]
+    np.testing.assert_array_equal(back.raw_sum, want[1])

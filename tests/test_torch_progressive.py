@@ -9,6 +9,7 @@ import torch
 
 from distributed_raytracer_tpu_torch import cli
 from distributed_raytracer_tpu_torch.models import presets
+from distributed_raytracer_tpu_torch.ops.kernels.mega_render_kernel import render_wavefront_sum_mega
 from distributed_raytracer_tpu_torch.render.image import read_ppm, to_bytes, write_ppm
 from distributed_raytracer_tpu_torch.render.progressive import (
     AccumState,
@@ -73,6 +74,54 @@ def test_batches_and_progress(small):
     # each batch has its own seeds
     assert batch_seeds(3, 0) != batch_seeds(3, 2)
     assert all(0 <= s < 2**31 for s in batch_seeds(-5, 10))
+
+
+def test_cpu_hands_out_each_batch_as_summed(small):
+    """On the CPU there is no lookahead: no batch is handed out while the
+    next is queued, and each snapshot is its own array, equal at the end
+    to the float32 prefix sum, added on the host, of the batch sums."""
+    scene, camera = small
+    snaps = []
+    before = render_progressive.overlapped
+    state = render_progressive(scene, camera, seed=3, spp=5, batch=2, device="cpu",
+                               progress_cb=lambda s: snaps.append(s.raw_sum))
+    assert render_progressive.overlapped == before
+    acc = np.zeros((camera.num_pixels, 3), np.float32)
+    assert len(snaps) == 3
+    for snap, done in zip(snaps, (0, 2, 4)):
+        acc = acc + render_wavefront_sum_mega(scene, camera, min(2, 5 - done),
+                                              *batch_seeds(3, done), device="cpu").numpy()
+        np.testing.assert_array_equal(snap, acc)
+    assert not any(np.shares_memory(a, b) for i, a in enumerate(snaps) for b in snaps[i + 1:])
+    assert state.raw_sum is snaps[-1]
+
+
+def test_failed_batch_leaves_the_one_before_saved(small, tmp_path, monkeypatch):
+    """A batch whose render raises propagates the error; the checkpoint
+    then holds the batch before it, as summed on the host."""
+    from distributed_raytracer_tpu_torch.render import progressive
+
+    scene, camera = small
+    calls = []
+
+    def failing(*args, **kwargs):
+        calls.append(args)
+        if len(calls) == 3:
+            raise RuntimeError("launch failed")
+        return render_wavefront_sum_mega(*args, **kwargs)
+
+    monkeypatch.setattr(progressive, "render_wavefront_sum_mega", failing)
+    ckpt = str(tmp_path / "ck.npz")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        render_progressive(scene, camera, seed=3, spp=6, batch=2, device="cpu",
+                           checkpoint_path=ckpt)
+    acc = np.zeros((camera.num_pixels, 3), np.float32)
+    for done in (0, 2):
+        acc = acc + render_wavefront_sum_mega(scene, camera, 2, *batch_seeds(3, done),
+                                              device="cpu").numpy()
+    back = AccumState.load(ckpt)
+    assert back.samples_done == 4
+    np.testing.assert_array_equal(back.raw_sum, acc)
 
 
 def test_accum_state_round_trip(small, tmp_path):
