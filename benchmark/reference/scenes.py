@@ -4,16 +4,28 @@ inputs that the program and the reference are both handed.
 A scene is a dict of arrays, one row per sphere: centers [N, 3], radii
 [N], albedo [N, 3], fuzz [N], ior [N] (float32) and mat [N] (int32, the
 codes below, which are the scene format both sides read).
+
+A configuration's "scene" entry names its generator, the file
+generators/<generator>.py, which exports make(seed, **kw) -> dict of those
+six arrays (built with SceneRows); the entry's other keys are its
+keyword arguments.
 """
 
 from __future__ import annotations
 
+import importlib.util
+from pathlib import Path
+from typing import Callable
+
 import numpy as np
 
 LAMBERTIAN, METAL, DIELECTRIC = 0, 1, 2
+GENERATOR_DIR = Path(__file__).resolve().parent / "generators"
 
 
-class _Spheres:
+class SceneRows:
+    """A scene built sphere by sphere; arrays() gives its six arrays."""
+
     def __init__(self):
         self.rows = []
 
@@ -38,37 +50,20 @@ class _Spheres:
                     fuzz=f32(f), ior=f32(i))
 
 
-def _rng(seed: int) -> np.random.Generator:
+def seeded_rng(seed: int) -> np.random.Generator:
+    """NumPy's generator for any whole-number seed, negative or past 64 bits."""
     return np.random.default_rng(int(seed) & (2**64 - 1))
 
 
-def rtiow_final(seed: int, grid: int = 11) -> dict:
-    """Ray Tracing in One Weekend's final scene: the ground sphere, one
-    small sphere (radius 0.2) per cell of the (2 grid)^2 grid, jittered,
-    80% Lambertian, 15% metal, 5% glass, none within 0.9 of (4, 0.2, 0),
-    and the three feature spheres (glass, Lambertian, metal)."""
-    rng = _rng(seed)
-    s = _Spheres()
-    s.lambertian((0.0, -1000.0, 0.0), 1000.0, (0.5, 0.5, 0.5))
-    for a in range(-grid, grid):
-        for b in range(-grid, grid):
-            choose = rng.random()
-            center = (a + 0.9 * rng.random(), 0.2, b + 0.9 * rng.random())
-            if np.sqrt(np.sum((np.array(center) - np.array([4.0, 0.2, 0.0])) ** 2)) <= 0.9:
-                continue
-            if choose < 0.8:
-                s.lambertian(center, 0.2, rng.random(3) * rng.random(3))
-            elif choose < 0.95:
-                s.metal(center, 0.2, rng.uniform(0.5, 1.0, 3), rng.uniform(0.0, 0.5))
-            else:
-                s.dielectric(center, 0.2, 1.5)
-    s.dielectric((0.0, 1.0, 0.0), 1.0, 1.5)
-    s.lambertian((-4.0, 1.0, 0.0), 1.0, (0.4, 0.2, 0.1))
-    s.metal((4.0, 1.0, 0.0), 1.0, (0.7, 0.6, 0.5), 0.0)
-    return s.arrays()
-
-
-GENERATORS = {"rtiow_final": rtiow_final}
+def generator(name: str) -> Callable[..., dict]:
+    """The make function of generators/<name>.py."""
+    path = GENERATOR_DIR / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no scene generator {name!r}: {path} is missing")
+    spec = importlib.util.spec_from_file_location(f"bench_scene_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.make
 
 
 def make_scene(spec: dict, seed: int) -> dict:
@@ -77,6 +72,6 @@ def make_scene(spec: dict, seed: int) -> dict:
     renders its scene), in an order drawn from the run's seed.  Every run
     so renders the same spheres, and the same work, whatever its seed."""
     kw = {k: v for k, v in spec.items() if k not in ("generator", "seed")}
-    scene = GENERATORS[spec["generator"]](spec["seed"], **kw)
-    order = _rng(seed).permutation(len(scene["radii"]))
+    scene = generator(spec["generator"])(spec["seed"], **kw)
+    order = seeded_rng(seed).permutation(len(scene["radii"]))
     return {k: v[order] for k, v in scene.items()}

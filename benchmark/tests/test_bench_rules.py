@@ -5,6 +5,7 @@ or without the program, and the trace reduction's arithmetic."""
 from __future__ import annotations
 
 import ast
+import inspect
 import json
 import os
 import shutil
@@ -16,6 +17,7 @@ from pathlib import Path
 import pytest
 
 from benchmark import harness, tracing
+from benchmark.reference import scenes
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "benchmark"
@@ -30,21 +32,29 @@ def test_forbidden_names_compare_whole_top_level_names(monkeypatch):
     assert "distributed_raytracer_tpu" in harness.forbidden_modules()
 
 
+# the one reference module that loads code: scenes.py, the generators' files
+LOADER = {"scenes.py": {"importlib", "pathlib"}}
+
+
 def test_reference_imports_nothing_of_the_program_or_jax():
-    for f in (BENCH / "reference").glob("*.py"):
+    files = sorted((BENCH / "reference").rglob("*.py"))
+    assert (BENCH / "reference" / "generators" / "rtiow_final.py") in files
+    for f in files:
+        allowed = {"__future__", "numpy", "torch", "typing", "benchmark"} | LOADER.get(
+            str(f.relative_to(BENCH / "reference")), set())
         for node in ast.walk(ast.parse(f.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
                      [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
             for n in names:
                 top = n.split(".")[0]
-                assert top in {"__future__", "numpy", "torch", "typing", "benchmark"}, (f, n)
+                assert top in allowed, (f, n)
                 assert not n.startswith("benchmark.") or n.startswith("benchmark.reference"), (f, n)
 
 
 def test_a_cpu_run_loads_no_jax_module():
     code = ("import sys, time; sys.path.insert(0, %r); sys.path.insert(0, %r)\n"
             "from conftest import tiny\nfrom benchmark import harness\n"
-            "res, _ = harness.run_cell(tiny('rtiow_final.train', True), 3, 0.3, True, 'cpu', "
+            "res, _ = harness.run_cell(tiny('rtiow_final.train', 'wide'), 3, 0.3, True, 'cpu', "
             "time.perf_counter())\nassert res['correct']\n"
             "print(harness.forbidden_modules())\n") % (str(ROOT), str(BENCH / "tests"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -96,6 +106,14 @@ def test_benchmark_json_names_a_file_for_every_cell_part():
         assert (BENCH / "limits" / f"{w['name']}.json").exists()
     for c in bench["configs"]:
         assert (ROOT / c["file"]).exists()
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        name = cfg["scene"]["generator"]
+        assert (BENCH / "reference" / "generators" / f"{name}.py").exists(), name
+        takes = set(list(inspect.signature(scenes.generator(name)).parameters)[1:])
+        assert set(cfg["scene"]) - {"generator", "seed"} <= takes, (c["name"], takes)
+        assert cfg["cpu_forms"], c["name"]
+        for form, over in cfg["cpu_forms"].items():
+            assert over and set(over) <= takes, (c["name"], form, takes)
 
 
 @pytest.mark.cuda
