@@ -32,7 +32,7 @@ cannot change an image) have no counterpart: every ray runs to its end.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -351,20 +351,50 @@ def mega_walk_forward_camera_cuda(scene_pack, attrs, bounds, chunk_len, cam_row,
 mega_walk_forward_camera_cuda.launches = 0
 
 
-def mega_walk_sample(scene_pack, *args, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+# The walk's tally: per device, the STATS of every launch through
+# mega_walk_sample and mega_walk_forward_camera summed on that device (an
+# add queued beside the launch: no host sync), with the chunks of the last
+# pack counted on the host.  walk_tally reads and resets it.
+_tally: Dict[torch.device, list] = {}
+
+
+def _tally_add(stats: torch.Tensor, n_chunks: int) -> None:
+    entry = _tally.setdefault(stats.device, [torch.zeros_like(stats), 0])
+    entry[0].add_(stats)
+    entry[1] = n_chunks
+
+
+def walk_tally() -> Optional[Dict[str, int]]:
+    """The walk's counts since the last call, then reset: the STATS summed
+    over every render and record launch on every device, and "chunks", the
+    chunk count of the last pack launched.  None when nothing was launched.
+    Reads each device once."""
+    if not _tally:
+        return None
+    entries = list(_tally.values())
+    _tally.clear()
+    total = sum(e[0].cpu() for e in entries)
+    return {**dict(zip(STATS, (int(x) for x in total))), "chunks": entries[-1][1]}
+
+
+def mega_walk_sample(scene_pack, attrs, bounds, chunk_len, cam_row,
+                     **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     """One image sample on the walk: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    if scene_pack.device.type == "cpu":
-        return mega_walk_sample_plain(scene_pack, *args, **kw)
-    return mega_walk_sample_cuda(scene_pack, *args, **kw)
+    plain version for CPU tensors.  The launch's STATS join the tally."""
+    run = mega_walk_sample_plain if scene_pack.device.type == "cpu" else mega_walk_sample_cuda
+    out = run(scene_pack, attrs, bounds, chunk_len, cam_row, **kw)
+    _tally_add(out[1], chunk_len.shape[0])
+    return out
 
 
-def mega_walk_forward_camera(scene_pack, *args, **kw) -> WalkOut:
+def mega_walk_forward_camera(scene_pack, attrs, bounds, chunk_len, cam_row, **kw) -> WalkOut:
     """The recording walk: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if scene_pack.device.type == "cpu":
-        return mega_walk_forward_camera_plain(scene_pack, *args, **kw)
-    return mega_walk_forward_camera_cuda(scene_pack, *args, **kw)
+    version for CPU tensors.  The launch's STATS join the tally."""
+    run = (mega_walk_forward_camera_plain if scene_pack.device.type == "cpu"
+           else mega_walk_forward_camera_cuda)
+    out = run(scene_pack, attrs, bounds, chunk_len, cam_row, **kw)
+    _tally_add(out.stats, chunk_len.shape[0])
+    return out
 
 
 def _pack_args(pack: WalkPack, camera: Camera, device):

@@ -44,6 +44,7 @@ import dataclasses
 import os
 import sys
 import tempfile
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -198,6 +199,23 @@ def _shuffled_fill_sample(scene_dev: Scene, camera_dev: Camera, key: torch.Tenso
     return raw
 
 
+def _walk_pack(scene: Scene, camera: Camera, culled: Optional[CulledScene], dev):
+    """The walk's pack for this call on dev: built on the host
+    (walk_pack_for(chunk=WALK_CHUNK), or the given CulledScene in the
+    camera's visit order) and uploaded, inside the profiler range
+    render_progressive.walk_pack; the builds and their host seconds count
+    into render_progressive.walk_packs and .walk_pack_s."""
+    if culled is None:
+        native.available()  # a first use compiles the native library: no part of a build
+    t0 = time.perf_counter()
+    with torch.profiler.record_function("render_progressive.walk_pack"):
+        pack = (walk_pack_for(scene, camera, chunk=WALK_CHUNK) if culled is None else
+                build_walk_pack(culled, camera.center.detach().cpu().numpy())).to(dev)
+    render_progressive.walk_packs += 1
+    render_progressive.walk_pack_s += time.perf_counter() - t0
+    return pack
+
+
 def render_progressive(
     scene: Scene,
     camera: Camera,
@@ -234,15 +252,15 @@ def render_progressive(
     resort_every as on the fused engine.
 
     engine="mega": a scene of at most 512 spheres with the dense kernel, a
-    larger one with the walk (walk_pack_for(chunk=256), built once), or,
-    given culled, the walk over that CulledScene in the camera's visit
-    order; all give equal images at equal content.  engine="fused": the
-    fused wavefront engine (render/wavefront.py) with pool_size lanes (default
-    16384), dense or, given culled, through the culled fused bounce; with
-    culled, ray_order="tiled" streams the pixels in 32x16 tiles and
-    resort_every re-sorts the lanes (the dense engine ignores both, as the
-    JAX engine does).  The engine tag of the state is the engine, with
-    "+culled" when culled is given.
+    larger one with the walk (walk_pack_for(chunk=256), built once a call:
+    _walk_pack counts it), or, given culled, the walk over that CulledScene
+    in the camera's visit order; all give equal images at equal content.
+    engine="fused": the fused wavefront engine (render/wavefront.py) with
+    pool_size lanes (default 16384), dense or, given culled, through the
+    culled fused bounce; with culled, ray_order="tiled" streams the pixels
+    in 32x16 tiles and resort_every re-sorts the lanes (the dense engine
+    ignores both, as the JAX engine does).  The engine tag of the state is
+    the engine, with "+culled" when culled is given.
 
     fill="shuffled" renders sample 0 of a fresh render in shuffled chunks
     of fill_chunk pixels (_shuffled_fill_sample; fill_cb gets the partial
@@ -304,8 +322,7 @@ def render_progressive(
             return render_wavefront_sum_mega(scene_dev, camera_dev, n,
                                              *batch_seeds(seed, done), device=dev)
     else:
-        pack = (walk_pack_for(scene, camera, chunk=WALK_CHUNK) if culled is None else
-                build_walk_pack(culled, camera.center.detach().cpu().numpy())).to(dev)
+        pack = _walk_pack(scene, camera, culled, dev)
 
         def render(n, done):
             return render_wavefront_sum_mega_walk(pack, camera_dev, n,
@@ -402,3 +419,5 @@ def render_progressive(
 
 
 render_progressive.overlapped = 0  # batches handed out while the next was already queued
+render_progressive.walk_packs = 0  # walk packs built (_walk_pack)
+render_progressive.walk_pack_s = 0.0  # their host seconds
